@@ -1,0 +1,30 @@
+// Definitions shared by the port's CUDA kernels.
+//
+// Every kernel is built by kernels.py with --fmad=false and without
+// --use_fast_math: no multiply-add is contracted, and division, sqrtf and
+// powf keep their IEEE/libdevice accuracy, so each expression rounds as the
+// separately-rounded JAX and PyTorch expressions it mirrors. K3 and K4 are
+// elementwise and could be Triton; they are CUDA so that this single build
+// governs the rounding of every kernel, and so that K4's powf calls are the
+// same libdevice powf that PyTorch's CUDA pow uses.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ot {
+
+// A node payload (word >> 4) at or above this is a leaf; equal means empty
+// (octree_tracer_tpu/core/voxel.py VOXEL_OFFSET).
+constexpr uint32_t kVoxelOffset = 1u << 27;
+
+constexpr int kBlock = 256;
+
+inline unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kBlock - 1) / kBlock);
+}
+
+// 2^e as a float, exact for the depths a pool can hold: 1/exp2(d) in JAX.
+__device__ __forceinline__ float pow2(int e) { return ldexpf(1.0f, e); }
+
+}  // namespace ot

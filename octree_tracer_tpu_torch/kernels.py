@@ -1,0 +1,166 @@
+"""The port's CUDA kernel library: build, load, launch, count.
+
+The four kernels in ``csrc/*.cu`` compile with ``nvcc`` into one shared
+library with a plain C interface, loaded with ctypes. It is built from the
+sources at first use, into ``_build/`` beside this file, under a name keyed on
+a hash of the sources and flags, so an edit rebuilds it. Importing this module
+builds nothing and needs neither a GPU nor ``nvcc``.
+
+Each wrapper in the port validates its tensors, allocates its outputs with
+``torch.empty`` and calls :func:`launch`, which runs the C entry point on the
+current CUDA stream, raises if the launch reported an error, and adds one to
+the kernel's count in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+# --fmad=false keeps FMA contraction from moving knife-edge rays; no
+# --use_fast_math, so IEEE division, sqrtf and powf stay (csrc/common.cuh).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Launches of each kernel since the last reset_launches().
+LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0}
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# argtypes of each C entry point; the last argument is always the stream.
+_SIGNATURES = {
+    "ot_trace": [_P, _I64, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I] + [_P] * 9,
+    "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
+    "ot_raygen": [_P, _I, _I, _P, _P, _P],
+    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F, _P, _P, _P],
+}
+
+_lib = None
+
+
+def sources() -> list[str]:
+    """Paths of the CUDA sources, in a fixed order."""
+    return [
+        os.path.join(CSRC_DIR, f) for f in sorted(os.listdir(CSRC_DIR))
+        if f.endswith((".cu", ".cuh"))
+    ]
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libot_kernels_{h.hexdigest()[:16]}.so")
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: on PATH, else under CUDA_HOME."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def build() -> tuple[str, str]:
+    """Compile the library unless this source hash is already built.
+
+    Returns (library path, compiler output); the output holds ptxas's
+    register and spill report of every kernel."""
+    path = library_path()
+    log_path = path + ".log"
+    if os.path.exists(path):
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return path, log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp,
+           *[p for p in sources() if p.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
+        )
+    log = proc.stdout + proc.stderr
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, path)
+    return path, log
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()[0])
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream; raise if
+    the launch failed, else count one launch of ``kernel``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(library(), entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[kernel] += 1
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer for a ctypes ``c_void_p`` argument (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def uses_kernel(device: torch.device) -> bool:
+    """True for a CUDA device (launch the kernel), False for the CPU (run
+    the plain version); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")
+
+
+def check(t, name: str, dtype: torch.dtype, shape: tuple | None = None,
+          device: torch.device | None = None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (and ``shape``,
+    where None entries match any size, and ``device``)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and (
+        t.dim() != len(shape)
+        or any(s is not None and s != d for s, d in zip(shape, t.shape))
+    ):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,120 @@
+"""Camera model and primary-ray generation.
+
+The host functions are the JAX package's ``render/camera.py`` NumPy code,
+copied so that the port imports no module of that package (tests hold each
+copy equal to its original). ``generate_rays_device`` is the counterpart of
+``camera.py:80`` in pixel order only: the block-major order was a TPU layout.
+On a CUDA device it launches kernel K3 (``csrc/raygen.cu``), on the CPU it
+runs ``generate_rays_device_plain``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..state import div_scalar
+
+
+def proj_matrix(fov_deg: float, aspect_h_over_w: float) -> np.ndarray:
+    s = 1.0 / np.tan((fov_deg / 2.0) * (np.pi / 180.0))
+    return np.diag([aspect_h_over_w * s, s, -1.0, 1.0]).astype(np.float32)
+
+
+def look_at_rh(eye, center, up) -> np.ndarray:
+    """Right-handed look-at view matrix (row-major, applied as ``M @ v``)."""
+    eye = np.asarray(eye, dtype=np.float32)
+    f = np.asarray(center, dtype=np.float32) - eye
+    f = f / np.linalg.norm(f)
+    s = np.cross(f, np.asarray(up, dtype=np.float32))
+    s = s / np.linalg.norm(s)
+    u = np.cross(s, f)
+    m = np.eye(4, dtype=np.float32)
+    m[0, :3] = s
+    m[1, :3] = u
+    m[2, :3] = -f
+    m[0, 3] = -np.dot(s, eye)
+    m[1, 3] = -np.dot(u, eye)
+    m[2, 3] = np.dot(f, eye)
+    return m
+
+
+def camera_matrices(pos, look, fov_deg: float, width: int, height: int):
+    """(camera, camera_inverse) for a character at ``pos`` looking along
+    ``look``."""
+    pos = np.asarray(pos, dtype=np.float32)
+    look = np.asarray(look, dtype=np.float32)
+    view = look_at_rh(pos, pos + look, np.array([0.0, 1.0, 0.0], dtype=np.float32))
+    proj = proj_matrix(fov_deg, height / width)
+    camera = (proj @ view).astype(np.float32)
+    camera_inverse = np.linalg.inv(camera.astype(np.float64)).astype(np.float32)
+    return camera, camera_inverse
+
+
+def clip_space(width: int, height: int) -> np.ndarray:
+    """Per-pixel clip coords of the pixel centres, y flipped."""
+    xs = (np.arange(width, dtype=np.float32) + 0.5) / width * 2.0 - 1.0
+    ys = ((np.arange(height, dtype=np.float32) + 0.5) / height * 2.0 - 1.0) * -1.0
+    cx, cy = np.meshgrid(xs, ys)  # (H, W)
+    return np.stack([cx, cy], axis=-1)
+
+
+def generate_rays(camera_inverse: np.ndarray, width: int, height: int):
+    """(origin f32[3], dirs f32[H, W, 3]) on the host, by inverse projection
+    of clip-space points at z=1."""
+    ci = camera_inverse.astype(np.float32)
+    origin_h = ci @ np.array([0.0, 0.0, 0.0, 1.0], dtype=np.float32)
+    origin = origin_h[:3] / origin_h[3]
+
+    cs = clip_space(width, height)  # (H, W, 2)
+    pts = np.concatenate(
+        [cs, np.ones(cs.shape[:-1] + (2,), dtype=np.float32)], axis=-1
+    )  # (H, W, 4) = (cx, cy, 1, 1)
+    world = pts @ ci.T  # (H, W, 4)
+    world = world[..., :3] / world[..., 3:4]
+    dirs = world - origin
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return origin.astype(np.float32), dirs.astype(np.float32)
+
+
+def default_character():
+    """Spawn state: position and look direction."""
+    pos = np.array([0.1, 0.2, -1.5], dtype=np.float32)
+    look = -np.array([0.0, 0.0, -1.5], dtype=np.float32)
+    return pos, look
+
+
+def generate_rays_device_plain(camera_inverse: torch.Tensor, width: int,
+                               height: int):
+    """Plain PyTorch version of kernel K3, term by term as the kernel
+    computes it. Returns (origin f32[3], dirs f32[H, W, 3])."""
+    ci = camera_inverse
+    origin = ci[:3, 3] / ci[3, 3]  # ci @ (0, 0, 0, 1), over its w
+    dev = ci.device
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
+    xs = div_scalar(xs, width) * 2.0 - 1.0
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
+    ys = -(div_scalar(ys, height) * 2.0 - 1.0)
+    cx = xs[None, :].expand(height, width)
+    cy = ys[:, None].expand(height, width)
+    world = [((cx * ci[j, 0] + cy * ci[j, 1]) + ci[j, 2]) + ci[j, 3]
+             for j in range(4)]
+    d = [world[j] / world[3] - origin[j] for j in range(3)]
+    norm = torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+    return origin, torch.stack([c / norm for c in d], dim=-1)
+
+
+def generate_rays_device(camera_inverse, width: int, height: int, device):
+    """(origin f32[3], dirs f32[H, W, 3]) on ``device`` from the 4x4 inverse
+    camera matrix (NumPy array or tensor)."""
+    device = torch.device(device)
+    ci = torch.as_tensor(camera_inverse).to(device)
+    kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
+    if not kernels.uses_kernel(device):
+        return generate_rays_device_plain(ci, width, height)
+    origin = torch.empty(3, dtype=torch.float32, device=device)
+    dirs = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    kernels.launch("raygen", "ot_raygen", device, kernels.ptr(ci), width,
+                   height, kernels.ptr(origin), kernels.ptr(dirs))
+    return origin, dirs

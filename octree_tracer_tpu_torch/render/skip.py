@@ -1,0 +1,80 @@
+"""Octant-directional free-space skip fields (the JAX package's
+``render/skip.py``).
+
+Per cell of the 2^L grid and per ray-sign octant, the side B of the largest
+empty cube anchored at the cell and extending in the octant's direction, as
+a 4-bit codebook nibble (0..12, 16, 24, 32); eight nibbles make one u32 per
+cell. The combined table interleaves each cell's warp word (at 2c) with its
+skip word (at 2c+1), so the traversal fetches both in one 32-byte row.
+
+The occupancy comes from kernel K2 (``tracer.warp_occupancy``); the cube
+compositions stay host NumPy, as in the JAX package (``skip.py:141-147``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .tracer import warp_occupancy
+
+
+def occupancy_from_pool(words: torch.Tensor, levels: int) -> torch.Tensor:
+    """bool[8^levels] (flat, x-major like the warp table): the cell holds
+    filled geometry (its covering node is not an empty leaf)."""
+    return warp_occupancy(words, levels)[1]
+
+
+def build_skip_field(words: torch.Tensor, levels: int = 7,
+                     occ: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[8^levels] of u32 skip words (nibble of octant o = sx*4 + sy*2 +
+    sz at bits [4o, 4o+4)), on ``words``' device.
+
+    Empty-cube indicators with overlap-doubling, per octant (axes flipped so
+    the octant points +,+,+): E_{j+k} is the AND of E_k at the eight offsets
+    j*{0,1}^3, so 14 compositions reach every codebook side. The nibble is
+    the count of true codebook indicators, the floor-quantized cube side.
+    Outside the root cube counts as empty."""
+    side = 1 << levels
+    if occ is None:
+        occ = occupancy_from_pool(words, levels)
+    occ3 = occ.cpu().numpy().reshape(side, side, side)
+    out = np.zeros(side ** 3, dtype=np.uint32)
+
+    def compose(e, o):
+        """E_{k+o} from E_k (k >= o): AND over offsets o*{0,1}^3."""
+        p = np.pad(e, ((0, o), (0, o), (0, o)), constant_values=True)
+        out2 = e.copy()
+        for ox in (0, o):
+            for oy in (0, o):
+                for oz in (0, o):
+                    if ox == oy == oz == 0:
+                        continue
+                    out2 &= p[ox:ox + side, oy:oy + side, oz:oz + side]
+        return out2
+
+    for oct_ in range(8):
+        neg = tuple(ax for ax in range(3) if not (oct_ >> (2 - ax)) & 1)
+        o3 = np.flip(occ3, axis=neg) if neg else occ3
+        e = {1: ~o3}
+        for k, base, off in ((2, 1, 1), (3, 2, 1), (4, 2, 2), (5, 4, 1),
+                             (6, 4, 2), (7, 4, 3), (8, 4, 4), (9, 8, 1),
+                             (10, 8, 2), (11, 8, 3), (12, 8, 4), (16, 8, 8),
+                             (24, 16, 8), (32, 16, 16)):
+            e[k] = compose(e[base], off)
+        nib = np.zeros(o3.shape, dtype=np.uint32)
+        for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 16, 24, 32):
+            nib += e[k].astype(np.uint32)
+        if neg:
+            nib = np.flip(nib, axis=neg)
+        out |= nib.reshape(-1) << np.uint32(4 * oct_)
+    return torch.from_numpy(out.view(np.int32)).to(words.device)
+
+
+def build_warp_skip_table(words: torch.Tensor, levels: int = 7) -> torch.Tensor:
+    """Combined table int32[2 * 8^levels]: cell c's warp word at 2c and its
+    skip word at 2c+1. One K2 launch gives both the warp words and the
+    occupancy the skip field is built from."""
+    warp, occ = warp_occupancy(words, levels)
+    skip = build_skip_field(words, levels, occ=occ)
+    return torch.stack([warp, skip], dim=1).reshape(-1)

@@ -1,0 +1,513 @@
+"""Octree traversal, table build, shading and the frame.
+
+The port of the JAX package's ``render/tracer.py`` main path. Each kernel
+has a wrapper and, beside it, a plain PyTorch version of the same function
+written as separate ops, term by term after the JAX expressions:
+
+- ``trace`` (K1, ``csrc/trace.cu``) / ``trace_plain``: the semantics of JAX
+  ``trace`` with ``parent_restart=True`` (``tracer.py:135``);
+- ``warp_occupancy`` (K2, ``csrc/warp_occupancy.cu``) /
+  ``warp_occupancy_plain``: ``build_warp_table`` (``tracer.py:2859``) and
+  ``skip.occupancy_from_pool`` (``skip.py:66``) from one descent;
+- ``shade`` (K4, ``csrc/shade_encode.cu``) / ``shade_plain`` and
+  ``encode_u8_plain``: ``shade`` (``tracer.py:3132``) and ``encode_u8``
+  (``:3191``).
+
+A wrapper runs the plain version only for tensors on the CPU; on a CUDA
+device it launches its kernel or raises.
+
+``render_frame`` takes none of the JAX ``render_frame``'s TPU scheduling
+arguments (``mode``, ``tile_size``, ``beams``, ``beam_iters``,
+``fit_stages``, ``raw_result``, ``pre_permuted``, ``pack_pool``,
+``shadow_seed``, ``warp_in_body``, ``bricks``, ``paged``): each of those is
+held bit-identical to plain ``trace`` by its own contract, so one traversal
+kernel yields their results. The port returns results in pixel order.
+
+Pool words, table words and ``TraceResult.word`` are int32 tensors holding
+u32 bits (see ``state.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..core.voxel import VOXEL_OFFSET
+from ..state import div_scalar, narrow_u32, widen_u32
+
+MAX_STEPS = 100
+_EPS_DIR = 1e-6
+_EPS_NUDGE = 2e-6
+_EPS_SHADOW = 2.5e-6
+DEFAULT_SUN = (-1.7, -1.0, 0.8)
+
+_F32, _I32 = torch.float32, torch.int32
+
+
+class TraceResult(NamedTuple):
+    hit: torch.Tensor      # bool[N]
+    forced: torch.Tensor   # bool[N]: hits forced by the step cap
+    index: torch.Tensor    # int32[N]: node slot of the hit leaf, -1 otherwise
+    hit_pos: torch.Tensor  # f32[N, 3]
+    normal: torch.Tensor   # f32[N, 3]
+    steps: torch.Tensor    # int32[N]
+    depth: torch.Tensor    # int32[N]
+    word: torch.Tensor     # int32[N] of u32 bits: the hit leaf's pool word,
+    #                        0 on a miss or a forced hit.
+
+
+def warp_table_levels(warp_table) -> int:
+    """Levels L of a warp table (8^L words) or combined table (2*8^L)."""
+    n = int(warp_table.shape[0])
+    lv = max((n.bit_length() - 1) // 3, 0)
+    if (1 << (3 * lv)) == n or (1 << (3 * lv + 1)) == n:
+        return lv
+    raise ValueError(f"not a warp-table length (8^levels or 2*8^levels): {n}")
+
+
+def warp_table_combined(warp_table) -> bool:
+    """True for a combined (warp, skip) table of 2*8^L words."""
+    return int(warp_table.shape[0]) == 2 * (1 << (3 * warp_table_levels(warp_table)))
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as f32, exact (float bits built from the exponent), for
+    -126 <= e <= 127."""
+    return ((e.to(_I32) + 127) << 23).view(_F32)
+
+
+def _in_bounds(v: torch.Tensor) -> torch.Tensor:
+    return torch.all((v >= -1.0) & (v < 1.0), dim=-1)
+
+
+def _ray_box_dist(pos: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Slab entry distance to the root cube, 0 == miss."""
+    t1 = (-1.0 - pos) / dirs
+    t2 = (1.0 - pos) / dirs
+    v7 = torch.minimum(t1, t2).amax(dim=-1)
+    v8 = torch.maximum(t1, t2).amin(dim=-1)
+    return torch.where((v8 < 0.0) | (v7 > v8), torch.zeros_like(v7), v7)
+
+
+def _decode_skip(skip_word: torch.Tensor, oct_: torch.Tensor) -> torch.Tensor:
+    nib = (skip_word >> (4 * oct_)) & 15
+    return torch.where(nib <= 12, nib, (nib - 11) * 8)
+
+
+def _warp_lookup(table: torch.Tensor, levels: int, p: torch.Tensor,
+                 strict: bool, combined: bool):
+    """JAX ``_warp_lookup`` (tracer.py:2916) on a widened table: returns
+    (index, centre f32[m, 3], depth, valid, skip word or None)."""
+    side = 1 << levels
+    cells = torch.floor((p + 1.0) * (side / 2.0)).clamp(0, side - 1).long()
+    flat = (cells[:, 0] * side + cells[:, 1]) * side + cells[:, 2]
+    lane = flat * 2 if combined else flat
+    packed = table[lane]
+    skip = table[lane + 1] if combined else None
+    w_index = packed >> 5
+    w_depth = packed & 31
+    anc = cells >> (levels - w_depth).clamp(min=0)[:, None]
+    scale = _pow2(w_depth)[:, None]
+    centre = (anc.to(_F32) * 2.0 + 1.0) / scale - 1.0
+    half = 1.0 / scale
+    if strict:
+        in_cell = torch.all((p > centre - half) & (p <= centre + half), dim=-1)
+    else:
+        in_cell = torch.all((p >= centre - half) & (p < centre + half), dim=-1)
+    valid = in_cell & (w_depth > 0)
+    return (
+        torch.where(valid, w_index, 0),
+        torch.where(valid[:, None], centre, 0.0),
+        torch.where(valid, w_depth, 0),
+        valid,
+        skip,
+    )
+
+
+def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
+                strict_descent=True, warp_table=None) -> TraceResult:
+    """Plain PyTorch version of kernel K1: JAX ``trace`` with
+    ``parent_restart=True``, iterated over the rays still active.
+
+    Each loop trip is one JAX ``_make_body`` iteration for every live ray;
+    finished rays leave the working set, which changes no ray's result. A
+    ray still active after ``(max_steps + 2) * 26`` trips stays unresolved."""
+    dev = dirs.device
+    n = dirs.shape[0]
+    pool = widen_u32(words)
+    table = widen_u32(warp_table) if warp_table is not None else None
+    levels = warp_table_levels(warp_table) if table is not None else 0
+    combined = table is not None and warp_table_combined(warp_table)
+    side = 1 << levels
+
+    o = origins.to(_F32)
+    d = dirs.to(_F32)
+    d = torch.where(d == 0.0, _EPS_DIR, d)
+    inside = _in_bounds(o)
+    dist = _ray_box_dist(o, d)
+    active = inside | (dist != 0.0)
+    if active_init is not None:
+        active = active & active_init
+    pos = torch.where(inside[:, None], o, o + d * dist[:, None])
+
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    forced = torch.zeros(n, dtype=torch.bool, device=dev)
+    index = torch.full((n,), -1, dtype=_I32, device=dev)
+    hit_pos = torch.zeros((n, 3), dtype=_F32, device=dev)
+    normal = torch.zeros((n, 3), dtype=_F32, device=dev)
+    out_steps = torch.zeros(n, dtype=_I32, device=dev)
+    out_depth = torch.zeros(n, dtype=_I32, device=dev)
+    out_word = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    # Working set: the live rays' state (ids index the outputs).
+    ids = torch.nonzero(active).squeeze(1)
+    p = pos[ids]            # entry position = origin of every boundary step
+    d = d[ids]
+    v = p.clone()
+    nrm = torch.trunc(p * 1.000001)
+    rs = torch.sign(d)
+    oct_ = (d[:, 0] > 0).long() * 4 + (d[:, 1] > 0).long() * 2 + (d[:, 2] > 0).long()
+    m = ids.shape[0]
+    node = torch.zeros(m, dtype=torch.int64, device=dev)
+    cp = torch.zeros((m, 3), dtype=_F32, device=dev)
+    depth = torch.zeros(m, dtype=torch.int64, device=dev)
+    steps = torch.zeros(m, dtype=torch.int64, device=dev)
+    skw = torch.zeros(m, dtype=torch.int64, device=dev)
+    if table is not None:
+        node, cp, depth, _, skip = _warp_lookup(table, levels, p, strict_descent,
+                                                combined)
+        if combined:
+            skw = _decode_skip(skip, oct_)
+
+    for _ in range((max_steps + 2) * 26):
+        if ids.shape[0] == 0:
+            break
+        depth1 = depth + 1
+        pb = v > cp if strict_descent else v >= cp
+        child = pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
+        inv1 = _pow2(-depth1)[:, None]
+        np_ = cp + (pb.to(_F32) * 2.0 - 1.0) * inv1
+        idx = node + child
+        word = pool[idx]
+        payload = word >> 4
+        leaf = payload >= VOXEL_OFFSET
+        filled = payload > VOXEL_OFFSET
+        hit_now = leaf & filled
+        interior = ~leaf
+        stepping = leaf & ~filled
+
+        # Boundary step (used by the stepping rays).
+        t = ((np_ - p) + rs * inv1) / d
+        if combined:
+            skb = skw.to(_F32)[:, None]
+            cw = 2.0 / side
+            ci = torch.floor((v + 1.0) * (side / 2.0)).clamp(0, side - 1)
+            clo = ci * cw - 1.0
+            plane = torch.where(rs > 0, clo + skb * cw, (clo + cw) - skb * cw)
+            st = (plane - p) / d
+            sk_use = (skw > 0) & (st.amin(dim=1) > t.amin(dim=1))
+            t = torch.where(sk_use[:, None], st, t)
+        tx, ty, tz = t.unbind(1)
+        face = torch.stack([tx <= torch.minimum(ty, tz),
+                            ty <= torch.minimum(tz, tx),
+                            tz <= torch.minimum(tx, ty)], dim=1)
+        nn = face.to(_F32) * -rs
+        t_cur = torch.minimum(torch.minimum(tx, ty), tz)
+        nv = (p + d * t_cur[:, None]) - nn * _EPS_NUDGE
+        inb = _in_bounds(nv)
+        oob = stepping & ~inb
+        steps_new = steps + 1
+        over = stepping & inb & (steps_new > max_steps)
+        go = stepping & inb & ~over
+
+        r = ids[hit_now]
+        hit[r] = True
+        index[r] = idx[hit_now].to(_I32)
+        out_word[r] = word[hit_now]
+        hit_pos[r] = v[hit_now]
+        normal[r] = nrm[hit_now]
+        out_steps[r] = steps[hit_now].to(_I32)
+        out_depth[r] = depth1[hit_now].to(_I32)
+        r = ids[oob]
+        out_steps[r] = steps[oob].to(_I32)
+        out_depth[r] = depth1[oob].to(_I32)
+        r = ids[over]
+        hit[r] = True
+        forced[r] = True
+        hit_pos[r] = nv[over]
+        normal[r] = nn[over]
+        out_steps[r] = steps_new[over].to(_I32)
+        out_depth[r] = max_steps
+
+        # Restart: parent when the stepped position stays in the leaf's
+        # parent cell, else the warp cell's node, else the root.
+        vs = 2.0 * inv1
+        if strict_descent:
+            in_parent = torch.all((nv > cp - vs) & (nv <= cp + vs), dim=1)
+        else:
+            in_parent = torch.all((nv >= cp - vs) & (nv < cp + vs), dim=1)
+        # interior, go & in_parent (all unchanged), go_warp and go_root are
+        # disjoint, so their updates apply one after another.
+        go_root = go & ~in_parent
+        if table is not None:
+            w_i, w_p, w_d, w_valid, w_skip = _warp_lookup(
+                table, levels, nv, strict_descent, combined
+            )
+            go_warp = go_root & w_valid
+            go_root = go_root & ~w_valid
+            node = torch.where(go_warp, w_i, node)
+            cp = torch.where(go_warp[:, None], w_p, cp)
+            depth = torch.where(go_warp, w_d, depth)
+            if combined:
+                skw = torch.where(go, _decode_skip(w_skip, oct_), skw)
+        node = torch.where(interior, payload, torch.where(go_root, 0, node))
+        cp = torch.where(interior[:, None], np_,
+                         torch.where(go_root[:, None], 0.0, cp))
+        depth = torch.where(interior, depth1, torch.where(go_root, 0, depth))
+        v = torch.where(go[:, None], nv, v)
+        nrm = torch.where(go[:, None], nn, nrm)
+        steps = torch.where(go, steps_new, steps)
+
+        keep = interior | go
+        ids, p, d, v, nrm, rs, oct_ = (
+            x[keep] for x in (ids, p, d, v, nrm, rs, oct_))
+        node, cp, depth, steps, skw = (
+            x[keep] for x in (node, cp, depth, steps, skw))
+
+    return TraceResult(hit, forced, index, hit_pos, normal, out_steps,
+                       out_depth, narrow_u32(out_word))
+
+
+def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
+          strict_descent=True, warp_table=None) -> TraceResult:
+    """Trace ``dirs.shape[0]`` rays through the node pool ``words``.
+
+    ``origins``/``dirs`` are f32[N, 3], ``active_init`` an optional bool[N]
+    mask of rays to trace at all, ``warp_table`` an optional warp table
+    (8^L words) or combined warp+skip table (2*8^L words) of ``words``. On
+    a CUDA device this launches kernel K1; on the CPU it is ``trace_plain``.
+    """
+    dev = dirs.device
+    n = dirs.shape[0]
+    kernels.check(words, "words", _I32, (None,), dev)
+    kernels.check(origins, "origins", _F32, (n, 3), dev)
+    kernels.check(dirs, "dirs", _F32, (n, 3), dev)
+    if active_init is not None:
+        kernels.check(active_init, "active_init", torch.bool, (n,), dev)
+    table_mode, levels = 0, 0
+    if warp_table is not None:
+        kernels.check(warp_table, "warp_table", _I32, (None,), dev)
+        levels = warp_table_levels(warp_table)
+        table_mode = 2 if warp_table_combined(warp_table) else 1
+    if not kernels.uses_kernel(dev):
+        return trace_plain(words, origins, dirs, active_init, max_steps,
+                           strict_descent, warp_table)
+
+    res = TraceResult(
+        hit=torch.empty(n, dtype=torch.bool, device=dev),
+        forced=torch.empty(n, dtype=torch.bool, device=dev),
+        index=torch.empty(n, dtype=_I32, device=dev),
+        hit_pos=torch.empty((n, 3), dtype=_F32, device=dev),
+        normal=torch.empty((n, 3), dtype=_F32, device=dev),
+        steps=torch.empty(n, dtype=_I32, device=dev),
+        depth=torch.empty(n, dtype=_I32, device=dev),
+        word=torch.empty(n, dtype=_I32, device=dev),
+    )
+    kernels.launch(
+        "trace", "ot_trace", dev,
+        kernels.ptr(words), words.numel(), kernels.ptr(origins),
+        kernels.ptr(dirs), kernels.ptr(active_init), n, kernels.ptr(warp_table), table_mode,
+        levels, int(strict_descent), max_steps, (max_steps + 2) * 26,
+        *[kernels.ptr(f) for f in res],
+    )
+    return res
+
+
+def warp_occupancy_plain(words: torch.Tensor, levels: int):
+    """Plain PyTorch version of kernel K2. Returns (warp table int32[8^L] of
+    u32 words ``(node << 5) | depth``, occupancy bool[8^L])."""
+    dev = words.device
+    pool = widen_u32(words)
+    side = 1 << levels
+    c = torch.arange(side ** 3, dtype=torch.int64, device=dev)
+    cells = torch.stack([c >> (2 * levels), (c >> levels) & (side - 1),
+                         c & (side - 1)], dim=1)
+    centre = (cells.to(_F32) + 0.5) * (2.0 / side) - 1.0
+    node = torch.zeros_like(c)
+    node_pos = torch.zeros_like(centre)
+    depth = torch.zeros_like(c)
+    word = torch.zeros_like(c)
+    for _ in range(levels):
+        pb = centre > node_pos
+        child = pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
+        word = pool[node + child]
+        payload = word >> 4
+        step_ok = (payload < VOXEL_OFFSET) & (depth < levels)
+        node_pos2 = node_pos + (pb.to(_F32) * 2.0 - 1.0) / _pow2(depth + 1)[:, None]
+        node = torch.where(step_ok, payload, node)
+        node_pos = torch.where(step_ok[:, None], node_pos2, node_pos)
+        depth = torch.where(step_ok, depth + 1, depth)
+    return narrow_u32((node << 5) | depth), (word >> 4) != VOXEL_OFFSET
+
+
+def warp_occupancy(words: torch.Tensor, levels: int):
+    """(warp table, occupancy) of the 2^levels grid: per cell, the resume
+    word of a root descent toward the cell centre (at most ``levels`` deep,
+    stopping above leaves) and whether the cell holds geometry. On a CUDA
+    device this launches kernel K2; on the CPU it is
+    ``warp_occupancy_plain``."""
+    dev = words.device
+    kernels.check(words, "words", _I32, (None,))
+    if not 0 <= levels <= 9:
+        raise ValueError(f"levels must be in [0, 9], got {levels}")
+    if not kernels.uses_kernel(dev):
+        return warp_occupancy_plain(words, levels)
+    n = 1 << (3 * levels)
+    warp = torch.empty(n, dtype=_I32, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    kernels.launch("warp_occupancy", "ot_warp_occupancy", dev,
+                   kernels.ptr(words), words.numel(), levels, kernels.ptr(warp),
+                   kernels.ptr(occ))
+    return warp, occ
+
+
+def build_warp_table(words: torch.Tensor, levels: int = 6) -> torch.Tensor:
+    """Warp table int32[8^levels] (u32 words ``(node << 5) | depth``)."""
+    return warp_occupancy(words, levels)[0]
+
+
+def _neg_sun(sun_dir) -> np.ndarray:
+    """-normalize(sun) in f32, normalised as the JAX frame does."""
+    sun = np.asarray(sun_dir, dtype=np.float32)
+    return -(sun / np.sqrt(np.sum(sun * sun, dtype=np.float32)))
+
+
+def _lambert(normal: torch.Tensor, neg_sun: np.ndarray) -> torch.Tensor:
+    """normal . (-sun), summed in the kernels' order."""
+    s = [float(c) for c in neg_sun]
+    return (normal[:, 0] * s[0] + normal[:, 1] * s[1]) + normal[:, 2] * s[2]
+
+
+def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
+                sun_dir=DEFAULT_SUN, gamma=2.2) -> torch.Tensor:
+    """Plain PyTorch version of K4's shading: f32[N, 3] colours."""
+    if show_steps:
+        g = div_scalar(result.steps.to(_F32), 64.0)
+        return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
+    diffuse = torch.clamp_min(_lambert(result.normal, _neg_sun(sun_dir)), 0.0)
+    if shadow_hit is not None:
+        diffuse = torch.where(shadow_hit, 0.0, diffuse)
+    rgb24 = (widen_u32(result.word) >> 4) - VOXEL_OFFSET
+    base = div_scalar(torch.stack(
+        [(rgb24 >> 16) & 0xFF, (rgb24 >> 8) & 0xFF, rgb24 & 0xFF], dim=-1
+    ).to(_F32), 255.0)
+    lit = (0.3 + diffuse)[:, None] * base
+    colour = torch.where(result.hit[:, None], lit, 0.2)
+    red = torch.tensor([1.0, 0.0, 0.0], dtype=_F32, device=lit.device)
+    colour = torch.where(result.forced[:, None], red, colour)
+    return colour.clamp(0.0, 1.0) ** gamma
+
+
+def encode_u8_plain(img: torch.Tensor) -> torch.Tensor:
+    """Display encode: ``clip^(1/2.2) * 255`` truncated to u8."""
+    return (img.clamp(0.0, 1.0) ** (1.0 / 2.2) * 255.0).to(torch.uint8)
+
+
+def shade(result: TraceResult, shadow_hit=None, show_steps=False,
+          sun_dir=DEFAULT_SUN, gamma=2.2, u8=False) -> torch.Tensor:
+    """Colours f32[N, 3], or the encoded frame u8[N, 3] when ``u8``. On a
+    CUDA device this launches kernel K4; on the CPU it is ``shade_plain``
+    (and ``encode_u8_plain``)."""
+    dev = result.hit.device
+    n = result.hit.shape[0]
+    kernels.check(result.hit, "hit", torch.bool, (n,), dev)
+    kernels.check(result.forced, "forced", torch.bool, (n,), dev)
+    kernels.check(result.word, "word", _I32, (n,), dev)
+    kernels.check(result.normal, "normal", _F32, (n, 3), dev)
+    kernels.check(result.steps, "steps", _I32, (n,), dev)
+    if shadow_hit is not None:
+        kernels.check(shadow_hit, "shadow_hit", torch.bool, (n,), dev)
+    if not kernels.uses_kernel(dev):
+        img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma)
+        return encode_u8_plain(img) if u8 else img
+    out = torch.empty((n, 3), dtype=torch.uint8 if u8 else _F32, device=dev)
+    s = _neg_sun(sun_dir)
+    kernels.launch(
+        "shade_encode", "ot_shade_encode", dev,
+        kernels.ptr(result.hit), kernels.ptr(result.forced),
+        kernels.ptr(result.word), kernels.ptr(result.normal),
+        kernels.ptr(result.steps), kernels.ptr(shadow_hit), n,
+        float(s[0]), float(s[1]), float(s[2]), int(show_steps), gamma,
+        None if u8 else kernels.ptr(out), kernels.ptr(out) if u8 else None,
+    )
+    return out
+
+
+def shadow_rays(result: TraceResult, sun_dir=DEFAULT_SUN):
+    """(origins, dirs, active) of the shadow pass: from ``hit_pos + normal *
+    2.5e-6`` toward ``-normalize(sun)``, active on hits (forced ones
+    included) whose normal faces the sun. A back face shades the same
+    whether or not its shadow ray hits, so its ray is not traced."""
+    neg_sun = _neg_sun(sun_dir)
+    n = result.hit.shape[0]
+    origins = result.hit_pos + result.normal * _EPS_SHADOW
+    dirs = torch.from_numpy(neg_sun).to(origins.device).expand(n, 3).contiguous()
+    active = result.hit & (_lambert(result.normal, neg_sun) > 0)
+    return origins, dirs, active
+
+
+def agreement(a: dict, b: dict) -> np.ndarray:
+    """bool[N]: rays whose hit, index, steps, depth, normal (and word, where
+    both have it) are equal in two results given as dicts of NumPy arrays.
+    The repository's parity rule allows disagreement only on knife-edge
+    rays, below 0.5% of a frame (tests/test_tracer.py:1-11)."""
+    agree = np.all(np.asarray(a["normal"]) == np.asarray(b["normal"]), axis=-1)
+    for f in ("hit", "index", "steps", "depth", "word"):
+        if f in a and f in b:
+            agree &= np.asarray(a[f]) == np.asarray(b[f])
+    return agree
+
+
+def to_numpy(result) -> dict:
+    """A TraceResult (port or JAX) as a dict of NumPy arrays; ``word`` as
+    u32."""
+    out = {f: np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+           for f, x in zip(result._fields, result)}
+    out["word"] = out["word"].view(np.uint32)
+    return out
+
+
+def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
+                 show_steps=False, misc_bool=False, max_steps=MAX_STEPS,
+                 warp_table=None, u8_image=False, with_visits=False,
+                 show_hits=False, visit_flags=False):
+    """Full frame: primary trace, shadow trace, shade (and u8 encode).
+
+    ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
+    ``sun_dir`` three floats on the host.
+    Returns (image f32[H, W, 3] or u8[H, W, 3], TraceResult in pixel order,
+    None). Shadow rays are ``shadow_rays``'s; the shadow pass reads only
+    their hit mask. ``misc_bool`` selects the ``>=`` descent and gamma 1.0.
+    """
+    if with_visits or show_hits or visit_flags:
+        raise NotImplementedError("visit counting arrives with the Session slice")
+    h, w = dirs.shape[:2]
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    strict = not misc_bool
+    gamma = 2.2 - 1.2 * misc_bool
+    origins = origin.reshape(1, 3).expand(n, 3).contiguous()
+    result = trace(words, origins, flat, max_steps=max_steps,
+                   strict_descent=strict, warp_table=warp_table)
+    shadow_hit = None
+    if shadows and not show_steps:
+        sh_orig, sh_dirs, sh_active = shadow_rays(result, sun_dir)
+        shadow_hit = trace(words, sh_orig, sh_dirs, active_init=sh_active,
+                           max_steps=max_steps, strict_descent=strict,
+                           warp_table=warp_table).hit
+    img = shade(result, shadow_hit, show_steps=show_steps, sun_dir=sun_dir,
+                gamma=gamma, u8=u8_image)
+    return img.reshape(h, w, 3), result, None

@@ -1,0 +1,117 @@
+"""Deterministic scenes that need no asset file.
+
+``deep_shell`` is the bench's deep10 scene (bench.py:203-244): a spherical
+shell of radius 0.95 one leaf thick at ``depth``. ``random_scene`` is a small
+random tree for tests. Both build pool words with :func:`build_leaves`, a
+vectorised NumPy replica of the JAX package's ``native.build_leaves`` layout,
+so the port builds the bench's pool word for word without the native library
+or any module of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.voxel import VOXEL_OFFSET
+
+_EMPTY_LEAF = np.uint32(VOXEL_OFFSET << 4)
+
+
+def _key(cells: np.ndarray, bits: int) -> np.ndarray:
+    return (cells[:, 0] << (2 * bits)) | (cells[:, 1] << bits) | cells[:, 2]
+
+
+def build_leaves(cells: np.ndarray, rgb: np.ndarray, depth: int) -> np.ndarray:
+    """Pool words (u32) of the octree with colour ``rgb[i]`` at the
+    depth-``depth`` cell ``cells[i]`` (integer x, y, z).
+
+    The layout is ``native.build_leaves``'s: leaves are inserted in order, and
+    an insertion appends one 8-word child group for each missing ancestor, top
+    down, after the root group at 0. So the groups are ordered by (first leaf
+    below the node, node depth). A repeated cell keeps its last colour."""
+    cells = np.asarray(cells, dtype=np.int64).reshape(-1, 3)
+    rgb = np.asarray(rgb, dtype=np.uint32).reshape(-1)
+    if cells.shape[0] != rgb.shape[0]:
+        raise ValueError("cells and rgb must have the same length")
+    if depth < 1 or cells.size and (cells.min() < 0 or cells.max() >= 1 << depth):
+        raise ValueError(f"cells must lie in the 2^{depth} grid")
+
+    # Per level d: the occupied nodes (sorted keys) and the first leaf below each.
+    keys, first = {}, {}
+    for d in range(1, depth + 1):
+        k = _key(cells >> (depth - d), d)
+        if d < depth:
+            keys[d], first[d] = np.unique(k, return_index=True)
+        else:
+            rev, last = np.unique(k[::-1], return_index=True)
+            keys[d], leaf_rgb = rev, rgb[::-1][last]
+    levels = np.concatenate([np.full(keys[d].size, d) for d in range(1, depth)]
+                            ) if depth > 1 else np.zeros(0, np.int64)
+    firsts = (np.concatenate([first[d] for d in range(1, depth)])
+              if depth > 1 else np.zeros(0, np.int64))
+    group = np.empty(firsts.size, dtype=np.int64)
+    group[np.lexsort((levels, firsts))] = np.arange(1, firsts.size + 1)
+    group_of, start = {}, 0
+    for d in range(1, depth):
+        group_of[d] = group[start:start + keys[d].size]
+        start += keys[d].size
+
+    words = np.full(8 * (firsts.size + 1), _EMPTY_LEAF, dtype=np.uint32)
+    for d in range(1, depth + 1):
+        k = keys[d]
+        child = ((k >> (2 * d)) & 1) << 2 | ((k >> d) & 1) << 1 | (k & 1)
+        if d == 1:
+            parent = np.zeros(k.size, dtype=np.int64)
+        else:
+            pk = _key(np.stack([k >> (2 * d), (k >> d) & ((1 << d) - 1),
+                                k & ((1 << d) - 1)], axis=1) >> 1, d - 1)
+            parent = group_of[d - 1][np.searchsorted(keys[d - 1], pk)]
+        slot = 8 * parent + child
+        if d < depth:
+            words[slot] = (8 * group_of[d]).astype(np.uint32) << np.uint32(4)
+        else:
+            words[slot] = (np.uint32(VOXEL_OFFSET) + leaf_rgb) << np.uint32(4)
+    return words
+
+
+def shell_cells(depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """Cells (sorted, unique) and colours of the r = 0.95 shell at ``depth``,
+    computed as bench.py:213-238 computes them."""
+    side = 1 << depth
+    g = np.arange(side, dtype=np.float32)
+    cx = (g + 0.5) / side * 2.0 - 1.0
+    xs, ys = np.meshgrid(cx, cx, indexing="ij")
+    rng2 = 0.9025 - xs * xs - ys * ys
+    zs = np.sqrt(np.maximum(rng2, 0.0))
+    keep = rng2 > 0
+    cells = []
+    for sign in (1.0, -1.0):
+        zc = np.clip(
+            ((sign * zs + 1.0) * (side / 2.0)).astype(np.int64), 0, side - 1
+        )
+        cells.append(np.stack(
+            [np.broadcast_to(np.arange(side), (side, side))[keep],
+             np.broadcast_to(np.arange(side)[:, None], (side, side))[keep],
+             zc[keep]], axis=1))
+    cells = np.unique(np.concatenate(cells, axis=0), axis=0)
+    rgb = (
+        (cells[:, 0].astype(np.uint32) % 200 + 30) << 16
+        | (cells[:, 1].astype(np.uint32) % 200 + 30) << 8
+        | (cells[:, 2].astype(np.uint32) % 200 + 30)
+    )
+    return cells, rgb
+
+
+def deep_shell(depth: int = 10) -> np.ndarray:
+    """Pool words of the bench's deep shell scene at ``depth``."""
+    cells, rgb = shell_cells(depth)
+    return build_leaves(cells, rgb, depth)
+
+
+def random_scene(depth: int, n_voxels: int, seed: int) -> np.ndarray:
+    """Pool words of ``n_voxels`` random cells (repeats allowed) with random
+    non-empty colours at ``depth``, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 1 << depth, (n_voxels, 3))
+    rgb = rng.integers(1, 1 << 24, n_voxels).astype(np.uint32)
+    return build_leaves(cells, rgb, depth)

@@ -1,0 +1,199 @@
+"""Traversal: the port's ``trace`` (on the CPU, the plain version of kernel
+K1) against JAX ``tracer.trace`` and the NumPy oracle.
+
+The budget is the repository's (tests/test_tracer.py:1-11): hit, index,
+steps, depth, normal and word agree on at least 99.5% of rays, and hit_pos
+is within 1e-5 on the agreeing rays. Under a combined warp+skip table the
+port computes the skip planes with JAX's association (clo + cw - B*cw,
+tracer.py:554-561; ADVICE r5 notes it can differ from the plain march's by
+an ulp), and ``steps`` counts one per skip as JAX does, not one per cell as
+the oracle does.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from octree_tracer_tpu.core import CpuOctree
+from octree_tracer_tpu.render import cpu_reference as joracle
+from octree_tracer_tpu.render import skip as jskip
+from octree_tracer_tpu.render import tracer as jtracer
+from octree_tracer_tpu.render.camera import camera_matrices, default_character, generate_rays
+from octree_tracer_tpu_torch import scenes, state
+from octree_tracer_tpu_torch.render import cpu_reference as toracle
+from octree_tracer_tpu_torch.render import tracer as ttracer
+
+RES = 64
+LEVELS = 4
+SCENES = {
+    "shell5": lambda: scenes.deep_shell(5),
+    "random5": lambda: scenes.random_scene(5, 300, 1),
+    "random6": lambda: scenes.random_scene(6, 2000, 2),
+}
+CAMERAS = {
+    "bench": (np.array([0.4, 0.6, -2.2], np.float32),
+              np.array([-0.2, -0.35, 1.0], np.float32), 70.0),
+    "deep10": (np.array([0.2, 0.3, -2.4], np.float32),
+               np.array([-0.1, -0.15, 1.0], np.float32), 70.0),
+    "default": (*default_character(), 90.0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _words(scene):
+    return SCENES[scene]()
+
+
+@functools.lru_cache(maxsize=None)
+def _table(scene, kind):
+    words = jnp.asarray(_words(scene))
+    if kind == "warp":
+        return np.asarray(jtracer.build_warp_table(words, LEVELS))
+    return np.asarray(jskip.build_warp_skip_table(words, LEVELS))
+
+
+def _rays(cam):
+    pos, look, fov = CAMERAS[cam]
+    _, ci = camera_matrices(pos, look, fov, RES, RES)
+    o, d = generate_rays(ci, RES, RES)
+    flat = d.reshape(-1, 3)
+    return np.broadcast_to(o, flat.shape).copy(), flat
+
+
+def _jax(words, origins, dirs, table=None, **kw):
+    res, _ = jtracer.trace(
+        jnp.asarray(words), jnp.asarray(origins), jnp.asarray(dirs),
+        warp_table=None if table is None else jnp.asarray(table), **kw)
+    return ttracer.to_numpy(res)
+
+
+def _port(words, origins, dirs, table=None, active=None, **kw):
+    res = ttracer.trace(
+        state.u32_to_device(words, "cpu"), torch.from_numpy(origins),
+        torch.from_numpy(dirs),
+        active_init=None if active is None else torch.from_numpy(active),
+        warp_table=None if table is None else state.table_to_device(table, "cpu"),
+        **kw)
+    return ttracer.to_numpy(res)
+
+
+def _assert_agree(a, b, budget=0.005):
+    agree = ttracer.agreement(a, b)
+    assert (~agree).mean() < budget, f"{(~agree).sum()} of {agree.size} disagree"
+    if agree.any():
+        assert np.abs(a["hit_pos"] - b["hit_pos"])[agree].max() <= 1e-5
+    return agree
+
+
+@pytest.mark.parametrize("scene", ["shell5", "random6"])
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("table", ["none", "warp", "combined"])
+def test_trace_matches_jax(table, strict, scene):
+    origins, dirs = _rays("bench")
+    tab = None if table == "none" else _table(scene, table)
+    words = _words(scene)
+    a = _port(words, origins, dirs, tab, strict_descent=strict)
+    b = _jax(words, origins, dirs, tab, strict_descent=strict)
+    _assert_agree(a, b)
+    assert a["hit"].sum() > 0 and (~a["hit"]).sum() > 0
+
+
+@pytest.mark.parametrize("table", ["none", "combined"])
+def test_active_init_matches_jax(table):
+    origins, dirs = _rays("deep10")
+    active = np.random.default_rng(5).random(dirs.shape[0]) < 0.6
+    tab = None if table == "none" else _table("random5", table)
+    words = _words("random5")
+    a = _port(words, origins, dirs, tab, active=active)
+    b = _jax(words, origins, dirs, tab, active_init=jnp.asarray(active))
+    _assert_agree(a, b)
+    off = ~active
+    assert not a["hit"][off].any() and (a["index"][off] == -1).all()
+    assert (a["steps"][off] == 0).all() and (a["hit_pos"][off] == 0).all()
+
+
+@pytest.mark.parametrize("cam,scene", [("bench", "shell5"), ("deep10", "random5"),
+                                       ("default", "random5"), ("bench", "random6")])
+def test_no_table_matches_oracle(cam, scene):
+    origins, dirs = _rays(cam)
+    words = _words(scene)
+    a = _port(words, origins, dirs)
+    b = joracle.trace_rays(words, origins[0], dirs)
+    _assert_agree(a, b)
+
+
+@pytest.mark.parametrize("table", ["none", "combined"])
+def test_step_cap_matches_jax(table):
+    """A low step cap forces hits (red in the frame): forced rays report the
+    stepped position and normal, steps = cap + 1 and depth = cap."""
+    origins, dirs = _rays("bench")
+    words = _words("random6")
+    tab = None if table == "none" else _table("random6", table)
+    a = _port(words, origins, dirs, tab, max_steps=3)
+    b = _jax(words, origins, dirs, tab, max_steps=3)
+    _assert_agree(a, b)
+    np.testing.assert_array_equal(a["forced"], b["forced"])
+    assert a["forced"].any()
+    assert (a["steps"][a["forced"]] == 4).all() and (a["depth"][a["forced"]] == 3).all()
+    assert (a["index"][a["forced"]] == -1).all() and (a["word"][a["forced"]] == 0).all()
+
+
+@pytest.mark.parametrize("table", ["none", "warp", "combined"])
+def test_word_invariant(table):
+    """word is words[index] on real hits, 0 on misses and forced hits."""
+    origins, dirs = _rays("bench")
+    words = _words("random6")
+    tab = None if table == "none" else _table("random6", table)
+    a = _port(words, origins, dirs, tab)
+    real = a["hit"] & ~a["forced"]
+    assert real.any()
+    np.testing.assert_array_equal(a["word"][real], words[a["index"][real]])
+    assert (a["word"][~real] == 0).all()
+
+
+def test_skip_counts_one_step_per_skip():
+    """Under the combined table hits are those of the plain march, and steps
+    never exceed its cell-by-cell count."""
+    origins, dirs = _rays("deep10")
+    words = _words("shell5")
+    plain = _port(words, origins, dirs)
+    skip = _port(words, origins, dirs, _table("shell5", "combined"))
+    np.testing.assert_array_equal(plain["hit"], skip["hit"])
+    np.testing.assert_array_equal(plain["index"], skip["index"])
+    assert (skip["steps"] <= plain["steps"]).all()
+    assert skip["steps"].sum() < plain["steps"].sum()
+
+
+@pytest.mark.parametrize("depth,voxels", [(2, 12), (4, 60), (5, 200)])
+def test_random_trees_match_jax_and_oracle(depth, voxels):
+    """Random trees built through CpuOctree.put_in_voxel and random rays,
+    inside and outside the root cube (as tests/test_tracer.py:300-311)."""
+    rng = np.random.default_rng(7 + depth)
+    tree = CpuOctree(0)
+    side = 1 << depth
+    for c in rng.integers(0, side, (voxels, 3)):
+        tree.put_in_voxel(c.astype(np.float32) / side * 2 - 1,
+                          int(rng.integers(1, 1 << 24)), depth)
+    words = tree.to_words()
+    origins = rng.uniform(-3, 3, (512, 3)).astype(np.float32)
+    dirs = rng.normal(size=(512, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    a = _port(words, origins, dirs)
+    _assert_agree(a, _jax(words, origins, dirs))
+    _assert_agree(a, joracle.trace_rays(words, origins, dirs))
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_oracle_copy_equals_jax_oracle(strict):
+    origins, dirs = _rays("deep10")
+    words = _words("random6")
+    visits_t = np.zeros(words.shape[0], np.int64)
+    visits_j = np.zeros(words.shape[0], np.int64)
+    a = toracle.trace_rays(words, origins, dirs, visits=visits_t, strict_descent=strict)
+    b = joracle.trace_rays(words, origins, dirs, visits=visits_j, strict_descent=strict)
+    for f in b:
+        np.testing.assert_array_equal(a[f], b[f])
+    np.testing.assert_array_equal(visits_t, visits_j)
