@@ -22,6 +22,14 @@
 // Rounding: every expression keeps tracer.py's association term by term,
 // including the skip-plane association of tracer.py:554-561
 // (clo + cw - B*cw), which can differ by an ulp from the plain march's.
+//
+// Visits (`_visit_mark`, tracer.py:355-369, marked at :524-526): every trip
+// marks the slot it reads in an int32[pool] array, as an atomicAdd count or
+// as a stored 1 (flags; every writer stores the same value, so the race is
+// benign). Counting is a template parameter, so frames that do not count
+// keep the unmarked kernel's registers. Each ray's first descent marks the
+// root group, so in count mode about a million atomics of a 1080p frame
+// land on the same 8 addresses; warp-aggregated atomics are later work.
 #include "common.cuh"
 
 namespace {
@@ -45,6 +53,7 @@ struct TraceArgs {
   int32_t* steps;
   int32_t* depth;
   uint32_t* word;
+  int32_t* visits;            // [n_words] or null
 };
 
 struct Resume {
@@ -102,7 +111,8 @@ __device__ __forceinline__ int32_t decode_skip(uint32_t skip_word, int oct) {
 }
 
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
-template <bool STRICT, int TABLE>
+// VISITS: 0 = none, 1 = counts, 2 = 0/1 flags.
+template <bool STRICT, int TABLE, int VISITS>
 __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   constexpr bool kCombined = TABLE == 2;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -161,6 +171,13 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
       float np[3];
       for (int k = 0; k < 3; ++k) np[k] = cp[k] + (pb[k] ? inv1 : -inv1);
       const int32_t idx = node + child;
+      if (VISITS != 0 && idx < a.n_words) {  // out-of-pool marks drop, as JAX's
+        if (VISITS == 1) {
+          atomicAdd(a.visits + idx, 1);
+        } else {
+          a.visits[idx] = 1;
+        }
+      }
       // A malformed pool reads its last word, as JAX's clamped gather does.
       const uint32_t word = a.words[idx < a.n_words ? idx : a.n_words - 1];
       const uint32_t payload = word >> 4;
@@ -272,27 +289,37 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   }
 }
 
-template <bool STRICT>
-void launch_strict(const TraceArgs& a, int table_mode, cudaStream_t s) {
+template <bool STRICT, int VISITS>
+void launch_visits(const TraceArgs& a, int table_mode, cudaStream_t s) {
   const unsigned grid = ot::blocks_for(a.n);
   switch (table_mode) {
-    case 0: trace_kernel<STRICT, 0><<<grid, ot::kBlock, 0, s>>>(a); break;
-    case 1: trace_kernel<STRICT, 1><<<grid, ot::kBlock, 0, s>>>(a); break;
-    default: trace_kernel<STRICT, 2><<<grid, ot::kBlock, 0, s>>>(a); break;
+    case 0: trace_kernel<STRICT, 0, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
+    case 1: trace_kernel<STRICT, 1, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
+    default: trace_kernel<STRICT, 2, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
+  }
+}
+
+template <bool STRICT>
+void launch_strict(const TraceArgs& a, int table_mode, int visit_mode, cudaStream_t s) {
+  switch (visit_mode) {
+    case 0: launch_visits<STRICT, 0>(a, table_mode, s); break;
+    case 1: launch_visits<STRICT, 1>(a, table_mode, s); break;
+    default: launch_visits<STRICT, 2>(a, table_mode, s); break;
   }
 }
 
 }  // namespace
 
 // table_mode: 0 = no table, 1 = warp table, 2 = combined warp+skip table.
-// Returns cudaGetLastError() after the launch.
+// visit_mode: 0 = no visits (visits null), 1 = counts, 2 = 0/1 flags into
+// visits int32[n_words]. Returns cudaGetLastError() after the launch.
 extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                         const void* dirs,
                         const void* active_init, int64_t n, const void* table,
                         int table_mode, int levels, int strict, int max_steps,
                         int max_iters, void* hit, void* forced, void* index,
                         void* hit_pos, void* normal, void* steps, void* depth,
-                        void* word, void* stream) {
+                        void* word, void* visits, int visit_mode, void* stream) {
   if (n == 0) return 0;
   const TraceArgs a{static_cast<const uint32_t*>(words),
                     n_words,
@@ -311,12 +338,13 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                     static_cast<float*>(normal),
                     static_cast<int32_t*>(steps),
                     static_cast<int32_t*>(depth),
-                    static_cast<uint32_t*>(word)};
+                    static_cast<uint32_t*>(word),
+                    static_cast<int32_t*>(visits)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (strict) {
-    launch_strict<true>(a, table_mode, s);
+    launch_strict<true>(a, table_mode, visit_mode, s);
   } else {
-    launch_strict<false>(a, table_mode, s);
+    launch_strict<false>(a, table_mode, visit_mode, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 """The port's CUDA kernel library: build, load, launch, count.
 
-The four kernels in ``csrc/*.cu`` compile with ``nvcc`` into one shared
-library with a plain C interface, loaded with ctypes. It is built from the
-sources at first use, into ``_build/`` beside this file, under a name keyed on
-a hash of the sources and flags, so an edit rebuilds it. Importing this module
-builds nothing and needs neither a GPU nor ``nvcc``.
+The kernels in ``csrc/*.cu`` compile with ``nvcc`` into one shared library
+with a plain C interface, loaded with ctypes. It is built from the sources at
+first use, into ``_build/`` beside this file, under a name keyed on a hash of
+the sources and flags, so an edit rebuilds it: one ``nvcc -c`` per source, all
+started together, then one link. Importing this module builds nothing and
+needs neither a GPU nor ``nvcc``.
 
 Each wrapper in the port validates its tensors, allocates its outputs with
 ``torch.empty`` and calls :func:`launch`, which runs the C entry point on the
@@ -30,19 +31,23 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # --use_fast_math, so IEEE division, sqrtf and powf stay (csrc/common.cuh).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Launches of each kernel since the last reset_launches().
-LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0}
+LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0,
+            "select_candidates": 0, "propagate_visits": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # argtypes of each C entry point; the last argument is always the stream.
 _SIGNATURES = {
-    "ot_trace": [_P, _I64, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I] + [_P] * 9,
+    "ot_trace": [_P, _I64, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I] + [_P] * 9
+                + [_I, _P],
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
     "ot_raygen": [_P, _I, _I, _P, _P, _P],
-    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F, _P, _P, _P],
+    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 5,
+    "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _P],
+    "ot_propagate_visits": [_P, _I64, _P, _P, _P],
 }
 
 _lib = None
@@ -90,14 +95,29 @@ def build() -> tuple[str, str]:
         return path, log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp,
-           *[p for p in sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
-        )
-    log = proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    units = [p for p in sources() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in units]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(units, objs)]
+    try:
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        for proc, unit, out in zip(procs, units, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(unit)} with "
+                                   f"code {proc.returncode}:\n{out}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
+                           f"{link.stderr}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)

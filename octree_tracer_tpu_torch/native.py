@@ -1,0 +1,153 @@
+"""ctypes bindings for the host engine library (``libotcore``).
+
+The library is built from the JAX package's C++ source,
+``octree_tracer_tpu/native/otcore.cpp``, so the engine has one source. Reading
+that file imports nothing of the JAX package. It is compiled at first use with
+``g++ -O2 -std=c++17 -fPIC -shared`` into ``_build/`` beside this file, under a
+name keyed on a hash of the source, so an edit rebuilds it. Importing this
+module builds nothing. Without a compiler, ``available()`` is False and the
+callers take their NumPy paths.
+
+Bound here: the batch adaptive engine (``otc_process_subdivision`` and
+``otc_process_unsubdivision``, driven by ``app.native_engine``) and the mip
+tree (``patch_refs``, ``mip_tree``, used by ``world.World``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(os.path.dirname(_HERE), "octree_tracer_tpu", "native",
+                      "otcore.cpp")
+BUILD_DIR = os.path.join(_HERE, "_build")
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+
+_lib = None
+_tried = False
+
+
+class OtPool(ctypes.Structure):
+    _fields_ = [
+        ("nodes", ctypes.POINTER(ctypes.c_uint32)),
+        ("positions", ctypes.POINTER(ctypes.c_float)),
+        ("len", ctypes.c_uint64),
+        ("cap", ctypes.c_uint64),
+        ("holes", ctypes.POINTER(ctypes.c_uint32)),
+        ("hole_len", ctypes.c_uint64),
+        ("hole_cap", ctypes.c_uint64),
+    ]
+
+
+class OtChunk(ctypes.Structure):
+    _fields_ = [
+        ("id", ctypes.c_uint32),
+        ("n", ctypes.c_uint32),
+        ("ptrs", ctypes.POINTER(ctypes.c_uint32)),
+        ("vals", ctypes.POINTER(ctypes.c_uint32)),
+    ]
+
+
+def _u32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def library_path() -> str:
+    """Where the library for the current source and flags lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libotcore_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library unless this source hash is already built; return
+    its path. Raises if there is no source or no compiler, or g++ fails."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) on PATH")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed with code {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def load():
+    """The loaded library, built first if needed; None if it cannot be
+    built or loaded."""
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    try:
+        lib = ctypes.CDLL(build())
+    except (OSError, RuntimeError):
+        return None
+    lib.otc_process_subdivision.restype = ctypes.c_int64
+    lib.otc_process_unsubdivision.restype = ctypes.c_int64
+    lib.otc_mip_tree.restype = ctypes.c_uint32
+    lib.otc_patch_refs.restype = None
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def chunk_views(world) -> tuple:
+    """OtChunk views over a World's resident chunks: (ctypes array, count,
+    keepalive list)."""
+    items = [(cid, c) for cid, c in world.chunks.items() if len(c) >= 8]
+    arr = (OtChunk * max(1, len(items)))()
+    keep = []
+    for i, (cid, c) in enumerate(items):
+        ptrs = np.ascontiguousarray(c.pointers)
+        vals = np.ascontiguousarray(c.values)
+        keep.append((ptrs, vals))
+        arr[i] = OtChunk(np.uint32(cid), np.uint32(len(c)), _u32p(ptrs), _u32p(vals))
+    return arr, len(items), keep
+
+
+def patch_refs(pointers: np.ndarray, values: np.ndarray,
+               ids: np.ndarray, mips: np.ndarray) -> None:
+    """Write each referenced chunk's top-mip colour into the values of the
+    nodes referencing it (one linear pass)."""
+    lib = load()
+    assert values.flags["C_CONTIGUOUS"]
+    order = np.argsort(ids, kind="stable")
+    ids = np.ascontiguousarray(ids[order], dtype=np.uint32)
+    mips = np.ascontiguousarray(mips[order], dtype=np.uint32)
+    lib.otc_patch_refs(
+        _u32p(np.ascontiguousarray(pointers)), _u32p(values),
+        ctypes.c_uint64(pointers.shape[0]),
+        _u32p(ids), _u32p(mips), ctypes.c_uint32(ids.shape[0]),
+    )
+
+
+def mip_tree(pointers: np.ndarray, values: np.ndarray) -> int:
+    """In-place bottom-up mip averaging; returns the top mip colour. Chunk-ref
+    values must be patched first (``patch_refs``)."""
+    lib = load()
+    assert values.flags["C_CONTIGUOUS"]
+    return int(lib.otc_mip_tree(
+        _u32p(np.ascontiguousarray(pointers)), _u32p(values),
+        ctypes.c_uint64(pointers.shape[0]),
+    ))

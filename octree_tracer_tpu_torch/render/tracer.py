@@ -128,13 +128,17 @@ def _warp_lookup(table: torch.Tensor, levels: int, p: torch.Tensor,
 
 
 def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
-                strict_descent=True, warp_table=None) -> TraceResult:
+                strict_descent=True, warp_table=None, visits=None,
+                visit_flags=False) -> TraceResult:
     """Plain PyTorch version of kernel K1: JAX ``trace`` with
     ``parent_restart=True``, iterated over the rays still active.
 
     Each loop trip is one JAX ``_make_body`` iteration for every live ray;
     finished rays leave the working set, which changes no ray's result. A
-    ray still active after ``(max_steps + 2) * 26`` trips stays unresolved."""
+    ray still active after ``(max_steps + 2) * 26`` trips stays unresolved.
+    ``visits`` (int32[pool], updated in place) gets one mark at the slot
+    each trip reads, as JAX ``_visit_mark`` (tracer.py:355): a count, or a
+    1 under ``visit_flags``."""
     dev = dirs.device
     n = dirs.shape[0]
     pool = widen_u32(words)
@@ -192,6 +196,12 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         np_ = cp + (pb.to(_F32) * 2.0 - 1.0) * inv1
         idx = node + child
         word = pool[idx]
+        if visits is not None:
+            marked = idx[idx < pool.shape[0]]  # out-of-pool marks drop
+            if visit_flags:
+                visits[marked] = 1
+            else:
+                visits.index_add_(0, marked, torch.ones_like(marked, dtype=_I32))
         payload = word >> 4
         leaf = payload >= VOXEL_OFFSET
         filled = payload > VOXEL_OFFSET
@@ -282,13 +292,17 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
 
 
 def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
-          strict_descent=True, warp_table=None) -> TraceResult:
+          strict_descent=True, warp_table=None, visits=None,
+          visit_flags=False) -> TraceResult:
     """Trace ``dirs.shape[0]`` rays through the node pool ``words``.
 
     ``origins``/``dirs`` are f32[N, 3], ``active_init`` an optional bool[N]
     mask of rays to trace at all, ``warp_table`` an optional warp table
-    (8^L words) or combined warp+skip table (2*8^L words) of ``words``. On
-    a CUDA device this launches kernel K1; on the CPU it is ``trace_plain``.
+    (8^L words) or combined warp+skip table (2*8^L words) of ``words``.
+    ``visits``, an optional int32 tensor of the pool's length, is marked in
+    place at every slot a ray reads: counted, or set to 1 under
+    ``visit_flags``. On a CUDA device this launches kernel K1; on the CPU it
+    is ``trace_plain``.
     """
     dev = dirs.device
     n = dirs.shape[0]
@@ -302,9 +316,13 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.check(warp_table, "warp_table", _I32, (None,), dev)
         levels = warp_table_levels(warp_table)
         table_mode = 2 if warp_table_combined(warp_table) else 1
+    visit_mode = 0
+    if visits is not None:
+        kernels.check(visits, "visits", _I32, (words.shape[0],), dev)
+        visit_mode = 2 if visit_flags else 1
     if not kernels.uses_kernel(dev):
         return trace_plain(words, origins, dirs, active_init, max_steps,
-                           strict_descent, warp_table)
+                           strict_descent, warp_table, visits, visit_flags)
 
     res = TraceResult(
         hit=torch.empty(n, dtype=torch.bool, device=dev),
@@ -321,7 +339,7 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.ptr(words), words.numel(), kernels.ptr(origins),
         kernels.ptr(dirs), kernels.ptr(active_init), n, kernels.ptr(warp_table), table_mode,
         levels, int(strict_descent), max_steps, (max_steps + 2) * 26,
-        *[kernels.ptr(f) for f in res],
+        *[kernels.ptr(f) for f in res], kernels.ptr(visits), visit_mode,
     )
     return res
 
@@ -392,10 +410,14 @@ def _lambert(normal: torch.Tensor, neg_sun: np.ndarray) -> torch.Tensor:
 
 
 def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
-                sun_dir=DEFAULT_SUN, gamma=2.2) -> torch.Tensor:
+                sun_dir=DEFAULT_SUN, gamma=2.2, hits_visits=None) -> torch.Tensor:
     """Plain PyTorch version of K4's shading: f32[N, 3] colours."""
     if show_steps:
         g = div_scalar(result.steps.to(_F32), 64.0)
+        return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
+    if hits_visits is not None:
+        counter = hits_visits[result.index.clamp_min(0).long()].clamp_max(15)
+        g = torch.where(result.hit, div_scalar(counter.to(_F32), 15.0), 0.0)
         return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
     diffuse = torch.clamp_min(_lambert(result.normal, _neg_sun(sun_dir)), 0.0)
     if shadow_hit is not None:
@@ -417,10 +439,13 @@ def encode_u8_plain(img: torch.Tensor) -> torch.Tensor:
 
 
 def shade(result: TraceResult, shadow_hit=None, show_steps=False,
-          sun_dir=DEFAULT_SUN, gamma=2.2, u8=False) -> torch.Tensor:
-    """Colours f32[N, 3], or the encoded frame u8[N, 3] when ``u8``. On a
-    CUDA device this launches kernel K4; on the CPU it is ``shade_plain``
-    (and ``encode_u8_plain``)."""
+          sun_dir=DEFAULT_SUN, gamma=2.2, u8=False,
+          hits_visits=None) -> torch.Tensor:
+    """Colours f32[N, 3], or the encoded frame u8[N, 3] when ``u8``.
+    ``hits_visits`` (int32[pool]) selects the hit-counter view: hits show
+    ``min(visits[index], 15) / 15`` grey (``show_steps`` still wins, as in
+    JAX ``shade``). On a CUDA device this launches kernel K4; on the CPU it
+    is ``shade_plain`` (and ``encode_u8_plain``)."""
     dev = result.hit.device
     n = result.hit.shape[0]
     kernels.check(result.hit, "hit", torch.bool, (n,), dev)
@@ -430,8 +455,11 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
     kernels.check(result.steps, "steps", _I32, (n,), dev)
     if shadow_hit is not None:
         kernels.check(shadow_hit, "shadow_hit", torch.bool, (n,), dev)
+    if hits_visits is not None:
+        kernels.check(result.index, "index", _I32, (n,), dev)
+        kernels.check(hits_visits, "hits_visits", _I32, (None,), dev)
     if not kernels.uses_kernel(dev):
-        img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma)
+        img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma, hits_visits)
         return encode_u8_plain(img) if u8 else img
     out = torch.empty((n, 3), dtype=torch.uint8 if u8 else _F32, device=dev)
     s = _neg_sun(sun_dir)
@@ -441,21 +469,26 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
         kernels.ptr(result.word), kernels.ptr(result.normal),
         kernels.ptr(result.steps), kernels.ptr(shadow_hit), n,
         float(s[0]), float(s[1]), float(s[2]), int(show_steps), gamma,
+        kernels.ptr(result.index), kernels.ptr(hits_visits),
         None if u8 else kernels.ptr(out), kernels.ptr(out) if u8 else None,
     )
     return out
 
 
-def shadow_rays(result: TraceResult, sun_dir=DEFAULT_SUN):
+def shadow_rays(result: TraceResult, sun_dir=DEFAULT_SUN, cull=True):
     """(origins, dirs, active) of the shadow pass: from ``hit_pos + normal *
     2.5e-6`` toward ``-normalize(sun)``, active on hits (forced ones
-    included) whose normal faces the sun. A back face shades the same
-    whether or not its shadow ray hits, so its ray is not traced."""
+    included). With ``cull`` only hits whose normal faces the sun: a back
+    face shades the same whether or not its shadow ray hits. A frame that
+    counts visits traces every hit's ray, because every shadow ray counts
+    (JAX ``render_frame``, tracer.py:3452)."""
     neg_sun = _neg_sun(sun_dir)
     n = result.hit.shape[0]
     origins = result.hit_pos + result.normal * _EPS_SHADOW
     dirs = torch.from_numpy(neg_sun).to(origins.device).expand(n, 3).contiguous()
-    active = result.hit & (_lambert(result.normal, neg_sun) > 0)
+    active = result.hit
+    if cull:
+        active = active & (_lambert(result.normal, neg_sun) > 0)
     return origins, dirs, active
 
 
@@ -480,6 +513,17 @@ def to_numpy(result) -> dict:
     return out
 
 
+def overlay_hit_counts(visits: torch.Tensor, result: TraceResult) -> torch.Tensor:
+    """Visit flags with exact filled-leaf counts: a filled-leaf visit always
+    ends its ray, so the non-forced hits enumerate those visits (JAX
+    ``render_frame``, tracer.py:3414-3423). Rays that did not hit add 0 at
+    slot 0, which keeps the scatter free of a host sync."""
+    hm = result.hit & ~result.forced & (result.index >= 0)
+    counts = torch.zeros_like(visits)
+    counts.index_add_(0, torch.where(hm, result.index, 0).long(), hm.to(_I32))
+    return torch.where(counts > 0, counts, visits)
+
+
 def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
                  show_steps=False, misc_bool=False, max_steps=MAX_STEPS,
                  warp_table=None, u8_image=False, with_visits=False,
@@ -489,25 +533,43 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
     ``sun_dir`` three floats on the host.
     Returns (image f32[H, W, 3] or u8[H, W, 3], TraceResult in pixel order,
-    None). Shadow rays are ``shadow_rays``'s; the shadow pass reads only
-    their hit mask. ``misc_bool`` selects the ``>=`` descent and gamma 1.0.
+    visits int32[pool] or None). Shadow rays are ``shadow_rays``'s; the
+    shadow pass reads only their hit mask. ``misc_bool`` selects the ``>=``
+    descent and gamma 1.0.
+
+    ``with_visits`` counts, per pool slot, the reads of every ray of both
+    passes, as JAX ``render_frame`` (tracer.py:3377-3560) does: the primary
+    pass records 0/1 flags under ``visit_flags`` and then takes the exact
+    filled-leaf counts from its hits (``overlay_hit_counts``); the shadow
+    pass, not back-face culled while counting, adds exact counts. The
+    adaptive thresholds read only the filled-leaf counts and the interior
+    zero-set, which both modes give exactly. ``show_hits`` forces exact
+    counts and no shadows, and shows ``min(visits, 15) / 15`` on hits.
     """
-    if with_visits or show_hits or visit_flags:
-        raise NotImplementedError("visit counting arrives with the Session slice")
+    if show_hits:
+        shadows, with_visits, visit_flags = False, True, False
     h, w = dirs.shape[:2]
     flat = dirs.reshape(-1, 3)
     n = flat.shape[0]
     strict = not misc_bool
     gamma = 2.2 - 1.2 * misc_bool
     origins = origin.reshape(1, 3).expand(n, 3).contiguous()
+    visits = None
+    if with_visits:
+        visits = torch.zeros(words.shape[0], dtype=_I32, device=words.device)
     result = trace(words, origins, flat, max_steps=max_steps,
-                   strict_descent=strict, warp_table=warp_table)
+                   strict_descent=strict, warp_table=warp_table, visits=visits,
+                   visit_flags=visit_flags)
+    if with_visits and visit_flags:
+        visits = overlay_hit_counts(visits, result)
     shadow_hit = None
     if shadows and not show_steps:
-        sh_orig, sh_dirs, sh_active = shadow_rays(result, sun_dir)
+        sh_orig, sh_dirs, sh_active = shadow_rays(result, sun_dir,
+                                                  cull=not with_visits)
         shadow_hit = trace(words, sh_orig, sh_dirs, active_init=sh_active,
                            max_steps=max_steps, strict_descent=strict,
-                           warp_table=warp_table).hit
-    img = shade(result, shadow_hit, show_steps=show_steps, sun_dir=sun_dir,
-                gamma=gamma, u8=u8_image)
-    return img.reshape(h, w, 3), result, None
+                           warp_table=warp_table, visits=visits).hit
+    img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
+                sun_dir=sun_dir, gamma=gamma, u8=u8_image,
+                hits_visits=visits if show_hits else None)
+    return img.reshape(h, w, 3), result, visits

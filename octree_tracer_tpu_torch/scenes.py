@@ -5,14 +5,17 @@ shell of radius 0.95 one leaf thick at ``depth``. ``random_scene`` is a small
 random tree for tests. Both build pool words with :func:`build_leaves`, a
 vectorised NumPy replica of the JAX package's ``native.build_leaves`` layout,
 so the port builds the bench's pool word for word without the native library
-or any module of the JAX package.
+or any module of the JAX package. ``shell_world`` is the deep shell as a
+streaming world for the Session.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.voxel import VOXEL_OFFSET
+from .core.cpu_octree import CpuOctree
+from .core.voxel import CHUNK_OFFSET, VOXEL_OFFSET
+from .world.world import World
 
 _EMPTY_LEAF = np.uint32(VOXEL_OFFSET << 4)
 
@@ -106,6 +109,33 @@ def deep_shell(depth: int = 10) -> np.ndarray:
     """Pool words of the bench's deep shell scene at ``depth``."""
     cells, rgb = shell_cells(depth)
     return build_leaves(cells, rgb, depth)
+
+
+def chunk_from_words(words: np.ndarray) -> CpuOctree:
+    """The ground-truth chunk whose ``to_words()`` is ``words``: an interior
+    payload becomes the child pointer, a leaf becomes ``CHUNK_OFFSET`` with
+    its colour (0 for an empty leaf). Interior values stay 0 until the
+    world's mip tree is generated."""
+    payload = np.asarray(words, dtype=np.uint32) >> np.uint32(4)
+    leaf = payload >= np.uint32(VOXEL_OFFSET)
+    return CpuOctree.from_arrays(
+        np.where(leaf, CHUNK_OFFSET, payload).astype(np.uint32),
+        np.where(leaf, payload - np.uint32(VOXEL_OFFSET), 0).astype(np.uint32),
+        copy=False)
+
+
+def shell_chunk(depth: int = 10) -> CpuOctree:
+    """The deep shell (``deep_shell(depth)``) as a ground-truth chunk."""
+    return chunk_from_words(deep_shell(depth))
+
+
+def shell_world(depth: int = 10) -> World:
+    """A World (no block library) whose root chunk is ``shell_chunk(depth)``,
+    with its mip tree generated: the Session's streaming source."""
+    world = World(load_blocks=False)
+    world.chunks[0] = shell_chunk(depth)
+    world.generate_mip_tree(0)
+    return world
 
 
 def random_scene(depth: int, n_voxels: int, seed: int) -> np.ndarray:

@@ -6,12 +6,18 @@ carries them as ``torch.int32`` tensors holding the same bits: the CUDA
 kernels read them as ``const uint32_t*``, and the plain PyTorch path widens
 them once with :func:`widen_u32`, because on the CPU ``torch.uint32`` has no
 ``>>`` or ``<`` and ``int32 >>`` is an arithmetic shift.
+
+A World crosses between the packages as NumPy arrays (``world_to_numpy``,
+``world_from_numpy``), so both Sessions can stream from the same chunks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .core.cpu_octree import CpuOctree
+from .world.world import World
 
 
 def u32_to_device(words: np.ndarray, device) -> torch.Tensor:
@@ -41,6 +47,22 @@ def div_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
     by a CPU scalar multiplies by the scalar's rounded reciprocal instead,
     which is not bit-equal; a divisor tensor on x's device divides."""
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def world_to_numpy(world) -> dict:
+    """A World's chunks, of either package, as ``{id: (pointers, values,
+    top_mip)}`` NumPy copies."""
+    return {int(cid): (c.pointers.copy(), c.values.copy(), int(c.top_mip))
+            for cid, c in world.chunks.items()}
+
+
+def world_from_numpy(chunks: dict):
+    """The port's World (no block library) holding ``world_to_numpy``'s
+    chunks."""
+    world = World(load_blocks=False)
+    for cid, (ptrs, vals, top_mip) in chunks.items():
+        world.chunks[cid] = CpuOctree.from_arrays(ptrs, vals, top_mip=top_mip)
+    return world
 
 
 def table_to_device(table: np.ndarray, device) -> torch.Tensor:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from octree_tracer_tpu_torch import kernels, scenes, state
+from octree_tracer_tpu_torch.adaptive import feedback
 from octree_tracer_tpu_torch.render import camera, tracer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,14 +28,14 @@ def test_port_imports_with_jax_blocked():
         loaded = [m for m, mod in sys.modules.items() if mod is not None]
         assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
         assert not [m for m in loaded if m.split(".")[0] == "octree_tracer_tpu"]
-        from octree_tracer_tpu_torch import kernels
-        assert kernels._lib is None
+        from octree_tracer_tpu_torch import kernels, native
+        assert kernels._lib is None and native._lib is None
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 9
+    assert int(out.stdout) >= 18
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +70,30 @@ CASES = {
         r, shadow_hit=r.hit.to(torch.uint8))),
     "table bad length": (ValueError, lambda w, o, d, r: state.table_to_device(
         np.zeros(10, np.uint32), "cpu")),
+    "trace i64 visits": (TypeError, lambda w, o, d, r: tracer.trace(
+        w, o, d, visits=torch.zeros(w.shape[0], dtype=torch.int64))),
+    "trace short visits": (ValueError, lambda w, o, d, r: tracer.trace(
+        w, o, d, visits=torch.zeros(w.shape[0] - 8, dtype=torch.int32))),
+    "trace strided visits": (ValueError, lambda w, o, d, r: tracer.trace(
+        w, o, d, visits=torch.zeros(2 * w.shape[0], dtype=torch.int32)[::2])),
+    "shade f32 hits_visits": (TypeError, lambda w, o, d, r: tracer.shade(
+        r, hits_visits=torch.zeros(w.shape[0]))),
+    "shade strided hits_visits": (ValueError, lambda w, o, d, r: tracer.shade(
+        r, hits_visits=torch.zeros(2 * w.shape[0], dtype=torch.int32)[::2])),
+    "select i64 visits": (TypeError, lambda w, o, d, r: feedback.select_candidates_packed(
+        w, torch.zeros(w.shape[0], dtype=torch.int64), w.shape[0])),
+    "select short visits": (ValueError, lambda w, o, d, r: feedback.select_candidates_packed(
+        w, torch.zeros(8, dtype=torch.int32), w.shape[0])),
+    "select strided words": (ValueError, lambda w, o, d, r: feedback.select_candidates_packed(
+        torch.cat([w, w])[::2], torch.zeros(w.shape[0], dtype=torch.int32), w.shape[0])),
+    "select negative cap": (ValueError, lambda w, o, d, r: feedback.select_candidates_packed(
+        w, torch.zeros(w.shape[0], dtype=torch.int32), w.shape[0], sub_cap=-1)),
+    "propagate f32 visits": (TypeError, lambda w, o, d, r: feedback.propagate_visits(
+        w, torch.zeros(w.shape[0]), 2)),
+    "propagate short visits": (ValueError, lambda w, o, d, r: feedback.propagate_visits(
+        w, torch.zeros(w.shape[0] + 8, dtype=torch.int32), 2)),
+    "propagate strided visits": (ValueError, lambda w, o, d, r: feedback.propagate_visits(
+        w, torch.zeros(2 * w.shape[0], dtype=torch.int32)[::2], 2)),
 }
 
 
@@ -77,14 +102,6 @@ def test_wrapper_rejects_bad_tensors(small, case):
     exc, call = CASES[case]
     with pytest.raises(exc):
         call(*small)
-
-
-@pytest.mark.parametrize("flag", ["with_visits", "show_hits", "visit_flags"])
-def test_render_frame_visit_counting_not_ported(small, flag):
-    words = small[0]
-    with pytest.raises(NotImplementedError, match="Session slice"):
-        tracer.render_frame(words, torch.zeros(3), torch.ones(8, 8, 3),
-                            **{flag: True})
 
 
 def test_library_path_keyed_on_sources_and_flags(monkeypatch):

@@ -1,0 +1,296 @@
+"""Host layer of the port: its copies of ``CpuOctree``, ``Octree``,
+``World`` and both adaptive engines hold the JAX package's originals on the
+same inputs, and the deep shell as a streaming world equals the bench pool
+word for word."""
+
+import ctypes
+
+import numpy as np
+import pytest
+
+from octree_tracer_tpu import native as jnative
+from octree_tracer_tpu.adaptive import engine as jengine
+from octree_tracer_tpu.app import native_engine as jnative_engine
+from octree_tracer_tpu.core import CpuOctree as JCpuOctree
+from octree_tracer_tpu.core import voxel as jvoxel
+from octree_tracer_tpu.core.octree import Octree as JOctree
+from octree_tracer_tpu.world.world import World as JWorld
+from octree_tracer_tpu_torch import native, scenes, state
+from octree_tracer_tpu_torch.adaptive import engine
+from octree_tracer_tpu_torch.app import native_engine
+from octree_tracer_tpu_torch.core import voxel
+from octree_tracer_tpu_torch.core.cpu_octree import CpuOctree
+from octree_tracer_tpu_torch.core.octree import Octree, node_depth
+from octree_tracer_tpu_torch.world.world import World
+
+
+def test_voxel_helpers_equal_jax_package():
+    rgb = np.array([0, 1, 0xABCDEF, 0xFFFFFF], np.uint32)
+    np.testing.assert_array_equal(voxel.leaf_word(rgb), jvoxel.leaf_word(rgb))
+    np.testing.assert_array_equal(voxel.interior_word(rgb), jvoxel.interior_word(rgb))
+    words = jvoxel.leaf_word(rgb)
+    np.testing.assert_array_equal(voxel.word_payload(words), jvoxel.word_payload(words))
+    assert voxel.pack_rgb(1, 2, 3) == jvoxel.pack_rgb(1, 2, 3)
+    assert voxel.CHUNK_OFFSET == jvoxel.CHUNK_OFFSET
+    assert voxel.VOXEL_OFFSET == int(jvoxel.VOXEL_OFFSET)
+    for depth in (1, 3, 7):
+        np.testing.assert_array_equal(voxel.child_offset(np.arange(8), depth),
+                                      jvoxel.child_offset(np.arange(8), depth))
+
+
+def _cpu_ops(tree, rng, depth):
+    """Block references by ascending depth, then voxels at ``depth``: an
+    insert never lands above a deeper node on its path (both packages'
+    ``put_in_block`` would split forever there)."""
+    blocks = sorted(((int(rng.integers(1, depth)), int(rng.integers(1, 9)),
+                      rng.uniform(-1, 1, 3).astype(np.float32)) for _ in range(8)),
+                    key=lambda op: op[0])
+    for d, block_id, pos in blocks:
+        tree.put_in_block(pos, block_id, d)
+    for _ in range(32):
+        tree.put_in_voxel(rng.uniform(-1, 1, 3).astype(np.float32),
+                          int(rng.integers(0, 1 << 24)), depth)
+    return tree
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cpu_octree_equals_jax_package(seed):
+    a = _cpu_ops(CpuOctree(0b1010_0101), np.random.default_rng(seed), 5)
+    b = _cpu_ops(JCpuOctree(0b1010_0101), np.random.default_rng(seed), 5)
+    np.testing.assert_array_equal(a.pointers, b.pointers)
+    np.testing.assert_array_equal(a.values, b.values)
+    np.testing.assert_array_equal(a.to_words(), b.to_words())
+    assert a.to_bin() == b.to_bin()
+    assert a.top_mip == b.top_mip
+    c = CpuOctree.from_bin(a.to_bin())
+    np.testing.assert_array_equal(c.pointers, a.pointers)
+    for p in np.random.default_rng(seed + 9).uniform(-1, 1, (20, 3)).astype(np.float32):
+        ia, da, ca = a.find_voxel(p)
+        ib, db, cb = b.find_voxel(p)
+        assert (ia, da) == (ib, db)
+        np.testing.assert_array_equal(ca, cb)
+        np.testing.assert_array_equal(a.get_node_mask(ia - ia % 8),
+                                      b.get_node_mask(ib - ib % 8))
+
+
+def _live(tree):
+    """Slots reachable from the root group: what a frame can visit, so what
+    the Session's candidates name (freed groups keep stale words)."""
+    slots, frontier = [], [0]
+    while frontier:
+        base = frontier.pop()
+        for slot in range(base, base + 8):
+            slots.append(slot)
+            payload = tree.get_node(slot)
+            if payload < int(jvoxel.VOXEL_OFFSET):
+                frontier.append(payload)
+    return np.sort(np.asarray(slots, dtype=np.int64))
+
+
+def _octree_ops(tree, rng):
+    """Random subdivides and collapses of live nodes; returns the drained
+    journals."""
+    out = []
+    for step in range(60):
+        live = _live(tree)
+        leaves = [i for i in live if tree.get_node(i) >= int(jvoxel.VOXEL_OFFSET)]
+        inner = [i for i in live if tree.get_node(i) < int(jvoxel.VOXEL_OFFSET)]
+        if inner and rng.random() < 0.3:
+            node = inner[rng.integers(len(inner))]
+            tree.unsubdivide(node)
+            tree.set_leaf(node, int(rng.integers(1 << 24)))
+        else:
+            node = leaves[rng.integers(len(leaves))]
+            depth = tree.find_voxel(tree.positions[node])[1]
+            tree.subdivide(node, rng.integers(0, 1 << 24, 8).astype(np.uint32), depth + 1)
+        if step % 10 == 9:
+            out.append((tree.drain_patches(), tree.drain_freed()))
+    return out
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_octree_equals_jax_package(seed):
+    mask = np.arange(8, dtype=np.uint32) * 1000 + 7
+    a, b = Octree(mask), JOctree(mask)
+    ja, jb = _octree_ops(a, np.random.default_rng(seed)), _octree_ops(b, np.random.default_rng(seed))
+    np.testing.assert_array_equal(a.nodes, b.nodes)
+    np.testing.assert_array_equal(a.positions, b.positions)
+    assert a.hole_stack == b.hole_stack
+    assert a.hole_fraction() == b.hole_fraction()
+    np.testing.assert_array_equal(a.expanded(len(a) + 8), b.expanded(len(b) + 8))
+    for ((ia, va), fa), ((ib, vb), fb) in zip(ja, jb):
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(va, vb)
+        np.testing.assert_array_equal(fa, fb)
+    # max_depth is the deepest node the tree has held; node_depth reads a
+    # live node's depth back from its dyadic centre.
+    live = _live(a)
+    depths = node_depth(a.positions[live])
+    assert a.max_depth >= int(depths.max()) > 1
+    for i, depth in zip(live, depths):
+        if a.get_node(i) >= int(jvoxel.VOXEL_OFFSET):  # a leaf
+            assert a.find_voxel(a.positions[i])[:2] == (i, depth)
+
+
+def test_octree_rejects_bad_masks_and_double_subdivide():
+    with pytest.raises(ValueError):
+        Octree(np.zeros(7, np.uint32))
+    t = Octree(np.ones(8, np.uint32))
+    t.subdivide(3, np.ones(8, np.uint32), 2)
+    assert t.max_depth == 2
+    with pytest.raises(ValueError):
+        t.subdivide(3, np.ones(8, np.uint32), 2)
+
+
+@pytest.mark.parametrize("depth", [1, 3, 5, 7])
+def test_shell_chunk_is_deep_shell(depth):
+    chunk = scenes.shell_chunk(depth)
+    np.testing.assert_array_equal(chunk.to_words(), scenes.deep_shell(depth))
+    world = scenes.shell_world(depth)
+    np.testing.assert_array_equal(world.chunks[0].to_words(), scenes.deep_shell(depth))
+
+
+def _ref_world():
+    """A root chunk (shell, depth 5) with chunk references to two chunks,
+    one of them generated terrain, in both packages."""
+    root = scenes.chunk_from_words(scenes.deep_shell(5))
+    gen_id = int(voxel.CHUNK_OFFSET) // 2 + 3
+    ptrs, vals = root.pointers.copy(), root.values.copy()
+    leaves = np.flatnonzero(ptrs == voxel.CHUNK_OFFSET)
+    ptrs[leaves[::7]] = voxel.CHUNK_OFFSET + np.uint32(2)
+    ptrs[leaves[3::11]] = voxel.CHUNK_OFFSET + np.uint32(gen_id)
+    chunks = {
+        0: (ptrs, vals, 0),
+        2: (scenes.chunk_from_words(scenes.deep_shell(3)).pointers,
+            scenes.chunk_from_words(scenes.deep_shell(3)).values, 0x123456),
+        gen_id: (scenes.chunk_from_words(scenes.random_scene(3, 30, 5)).pointers,
+                 scenes.chunk_from_words(scenes.random_scene(3, 30, 5)).values, 0x654321),
+    }
+    return chunks
+
+
+def _jax_world(chunks):
+    w = JWorld(load_blocks=False)
+    for cid, (p, v, t) in chunks.items():
+        w.chunks[cid] = JCpuOctree.from_arrays(p, v, top_mip=t)
+    return w
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_generate_mip_tree_equals_jax_package(use_native, monkeypatch):
+    chunks = _ref_world()
+    a, b = state.world_from_numpy(chunks), _jax_world(chunks)
+    if not use_native:
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    else:
+        assert native.available() and jnative.available()
+    for cid in sorted(chunks, reverse=True):
+        a.generate_mip_tree(cid)
+        b.generate_mip_tree(cid)
+    got, want = state.world_to_numpy(a), state.world_to_numpy(b)
+    assert got.keys() == want.keys()
+    for cid in got:
+        for x, y in zip(got[cid], want[cid]):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_world_find_voxel_and_chunk_io(tmp_path):
+    chunks = _ref_world()
+    a, b = state.world_from_numpy(chunks), _jax_world(chunks)
+    for p in np.random.default_rng(2).uniform(-1, 1, (40, 3)).astype(np.float32):
+        ra, rb = a.find_voxel(p), b.find_voxel(p)
+        assert ra[:3] == rb[:3]
+        np.testing.assert_array_equal(ra[3], rb[3])
+    a.path = str(tmp_path)
+    a.save_chunk(2)
+    a.evict_chunk(2)
+    assert 2 not in a.chunks
+    a.load_chunk(2)
+    a._pool.shutdown(wait=True)
+    np.testing.assert_array_equal(a.chunks[2].pointers, chunks[2][0])
+    a.save_chunk(0)
+    c = World.load_world(str(tmp_path))
+    np.testing.assert_array_equal(c.chunks[0].pointers, chunks[0][0])
+    with pytest.raises(FileNotFoundError):
+        World.load_world(str(tmp_path / "missing"))
+    with pytest.raises(NotImplementedError):
+        World(load_blocks=True)
+
+
+def _engine_run(pkg_octree, world, eng_sub, eng_unsub, seed):
+    rng = np.random.default_rng(seed)
+    t = pkg_octree(world.chunks[0].get_node_mask(0))
+    stats = []
+    for step in range(6):
+        live = _live(t)
+        n = live.shape[0]
+        cand = rng.permutation(live)[: max(4, n // 2)].astype(np.int32)
+        if step % 3 == 2:
+            stats.append(eng_unsub(cand[: n // 8], t, world))
+        else:
+            stats.append(eng_sub(np.append(cand, -1), t, world))
+    return t, stats
+
+
+def _first(x):
+    return x[0] if isinstance(x, tuple) else x
+
+
+@pytest.mark.parametrize("engine_name", ["python", "native"])
+def test_engines_equal_jax_package(engine_name):
+    chunks = _ref_world()
+    del chunks[int(voxel.CHUNK_OFFSET) // 2 + 3]  # a missing chunk on some paths
+    a_w, b_w = state.world_from_numpy(chunks), _jax_world(chunks)
+    for w in (a_w, b_w):
+        w.generate_mip_tree(2)
+        w.generate_mip_tree(0)
+    if engine_name == "python":
+        ours = (engine.process_subdivision, engine.process_unsubdivision)
+    else:
+        ours = (native_engine.process_subdivision, native_engine.process_unsubdivision)
+    a, sa = _engine_run(Octree, a_w, *ours, seed=7)
+    b, sb = _engine_run(JOctree, b_w, jengine.process_subdivision,
+                        jengine.process_unsubdivision, seed=7)
+    assert [_first(x) for x in sa] == [_first(x) for x in sb]
+    assert sum(_first(x) for x in sa) > 0
+    np.testing.assert_array_equal(a.nodes, b.nodes)
+    np.testing.assert_array_equal(a.positions, b.positions)
+    assert a.hole_stack == b.hole_stack
+    np.testing.assert_array_equal(a.drain_patches()[0], b.drain_patches()[0])
+    np.testing.assert_array_equal(a.drain_freed(), b.drain_freed())
+    assert a.max_depth == int(node_depth(a.positions[_live(a)]).max())
+
+
+def test_native_engine_equals_jax_native_engine():
+    chunks = _ref_world()
+    a_w, b_w = state.world_from_numpy(chunks), _jax_world(chunks)
+    a, sa = _engine_run(Octree, a_w, native_engine.process_subdivision,
+                        native_engine.process_unsubdivision, seed=11)
+    b, sb = _engine_run(JOctree, b_w, jnative_engine.process_subdivision,
+                        jnative_engine.process_unsubdivision, seed=11)
+    assert [_first(x) for x in sa] == [_first(x) for x in sb]
+    np.testing.assert_array_equal(a.nodes, b.nodes)
+    assert a.hole_stack == b.hole_stack
+    assert sorted(a_w.chunks) == sorted(b_w.chunks)
+
+
+def test_native_library_builds_from_the_jax_source():
+    assert native.SOURCE.endswith("octree_tracer_tpu/native/otcore.cpp")
+    path = native.library_path()
+    assert path.startswith(native.BUILD_DIR)
+    lib = native.load()
+    assert lib is not None and isinstance(lib, ctypes.CDLL)
+    assert native.available()
+
+
+def test_world_round_trip_through_numpy():
+    chunks = _ref_world()
+    b = _jax_world(chunks)
+    b.generate_mip_tree(0)
+    a = state.world_from_numpy(state.world_to_numpy(b))
+    assert isinstance(a, World)
+    for cid, c in b.chunks.items():
+        np.testing.assert_array_equal(a.chunks[cid].pointers, c.pointers)
+        np.testing.assert_array_equal(a.chunks[cid].values, c.values)
+        assert a.chunks[cid].top_mip == c.top_mip
