@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's six CUDA kernels from ``octree_tracer_tpu_torch/csrc``
+Builds the port's nine CUDA kernels from ``octree_tracer_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), checks each against its
 plain PyTorch version at the main paths' shapes, checks the traversal kernel
-against the NumPy oracle on a subsample, and drives the two main paths:
+against the NumPy oracle on a subsample, and drives the main paths:
 
 - the frame: the bench's deep10 scene at 1920x1080 with shadows and the
   combined level-7 warp+skip table (phases 3-8);
 - the adaptive streaming Session on the deep10 shell world at 1920x1080,
   with visit counting, candidate selection and the visit closure on the
   card (phases 9-11), and a CPU Session (plain versions) against a CUDA
-  Session (kernels) in lockstep (phase 12).
+  Session (kernels) in lockstep (phase 12);
+- procedural generation: the island SDF kernel on the production 512^3
+  chunk (13), ``generate_world`` of the CLI's default world (14), and a
+  Session flying that generated world, streaming its chunks in and out,
+  with a CPU-vs-CUDA lockstep on a small generated world (15);
+- the probes' row gathers and scalar adds at every shape of
+  ``probes/gather_probe.py`` and ``probes/pallas_min_probe.py`` (16).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -19,14 +25,21 @@ Every phase prints a line; any failure raises and exits non-zero. Without a
 CUDA device it exits 1 and prints no result. The line before the last is a
 JSON object with each kernel's launches on the Session path (and on the
 frame path), its largest difference from the plain version and both times;
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``. Each kernel's
+``bound_ms`` is the least time the card could take for its work in this run
+(bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger), and
+``library_ms`` the time of the one PyTorch call that computes the same
+function, where there is one.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +61,15 @@ LOCK_RES, LOCK_DEPTH, LOCK_STEPS, LOCK_TURN = (128, 72), 8, 12, 8
 LOCK_POS = np.array([0.25, 0.35, -2.3], np.float32)
 LOCK_LOOK = np.array([-0.12, -0.17, 1.0], np.float32)
 FRAME_KERNELS = ("trace", "warp_occupancy", "raygen", "shade_encode")
+SESSION_KERNELS = FRAME_KERNELS + ("select_candidates", "propagate_visits")
+# Procedural generation: the production chunk (bench.py:333-337) and the
+# CLI's default world (app/cli.py:240-241), then a Session over it.
+GEN_DEPTH, WORLD_DEPTH = 9, 1
+GEN_CORNER = (-1.0, -1.0, -1.0)
+GEN_STEPS, GEN_TURN = 30, 22
+GEN_LOCK_DEPTH, GEN_LOCK_STEPS, GEN_LOCK_TURN = 5, 12, 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12
 
 KERNELS = {
     "trace": ("octree_tracer_tpu_torch/csrc/trace.cu",
@@ -62,6 +84,12 @@ KERNELS = {
                           "octree_tracer_tpu/adaptive/feedback.py:33"),
     "propagate_visits": ("octree_tracer_tpu_torch/csrc/propagate_visits.cu",
                          "octree_tracer_tpu/adaptive/feedback.py:96"),
+    "block_grid": ("octree_tracer_tpu_torch/csrc/block_grid.cu",
+                   "octree_tracer_tpu/gen/procedural.py:84"),
+    "gather_rows": ("octree_tracer_tpu_torch/csrc/gather_rows.cu",
+                    "probes/gather_probe.py:264"),
+    "add_scalar": ("octree_tracer_tpu_torch/csrc/add_scalar.cu",
+                   "probes/pallas_min_probe.py:44"),
 }
 
 
@@ -87,6 +115,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """bound_ms and bound_by for work that moves ``nbytes`` and does ``ops``
+    f32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def nvidia_smi(query: str) -> str:
@@ -144,6 +181,10 @@ def run(dev: torch.device) -> int:
         max_abs_err=0.0,
         ms=cuda_ms(lambda: tracer.warp_occupancy(words, LEVELS), 20),
         plain_ms=cuda_ms(lambda: tracer.warp_occupancy_plain(words, LEVELS), 3),
+        library_ms=None,
+        # Outputs only (a word and a flag per cell); the pool rows the
+        # descents read are not counted.
+        **bound(8 ** LEVELS * 5),
     )
     t0 = time.perf_counter()
     table = skip.build_warp_skip_table(words, LEVELS)
@@ -166,6 +207,8 @@ def run(dev: torch.device) -> int:
         max_abs_err=err,
         ms=cuda_ms(lambda: camera.generate_rays_device(ci, W, H, dev), 20),
         plain_ms=cuda_ms(lambda: camera.generate_rays_device_plain(ci_t, W, H), 5),
+        library_ms=None,
+        **bound(W * H * 12 + 12 + 64),  # directions and origin out, the matrix in
     )
     phase("5 K3", f"max |kernel - plain| {err:.3g} over {W}x{H} rays; kernel "
           f"{report['raygen']['ms']:.3f} ms, plain {report['raygen']['plain_ms']:.3f} ms")
@@ -191,6 +234,10 @@ def run(dev: torch.device) -> int:
         max_abs_err=hp_err,
         ms=cuda_ms(lambda: tracer.trace(words, origins, flat, warp_table=table), 5),
         plain_ms=plain_s * 1e3,
+        library_ms=None,
+        # One 32-byte group row a loop trip (this frame's steps), plus each
+        # ray's 24 bytes in and 42 bytes of results out.
+        **bound(int(res_k.steps.sum()) * 32 + n * 66),
     )
     sample = np.sort(np.random.default_rng(0).choice(n, ORACLE_RAYS, replace=False))
     res_0 = tracer.to_numpy(tracer.trace(words, origins, flat))
@@ -226,6 +273,8 @@ def run(dev: torch.device) -> int:
         ms=cuda_ms(lambda: tracer.shade(res_k, shadow_hit, u8=True), 20),
         plain_ms=cuda_ms(lambda: tracer.encode_u8_plain(
             tracer.shade_plain(res_k, shadow_hit)), 5),
+        library_ms=None,
+        **bound(n * 26),  # hit, forced, word, normal, steps, shadow in; u8 RGB out
     )
     phase("7 K4", f"f32 max |kernel - plain| {img_err:.3g}; u8 equal on "
           f"{u8_frac:.6f} of channels, max diff {int(u8_diff.max())}; kernel "
@@ -274,6 +323,8 @@ def run(dev: torch.device) -> int:
           f"{px_equal:.6f}; clocks.sm,power.draw,power.limit {power}")
 
     session_phases(dev, report, words, origins, flat, table, res_k, card)
+    gen_phases(dev, report, card)
+    probe_phase(dev, report)
 
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -337,8 +388,9 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
         ms_k = cuda_ms(lambda: feedback.select_candidates_packed(*args), 20)
         ms_p = cuda_ms(lambda: feedback.select_candidates_plain(*args), 5)
         if sub_cap == 65536:
-            report["select_candidates"].update(max_abs_err=float(err), ms=ms_k,
-                                               plain_ms=ms_p)
+            report["select_candidates"].update(
+                max_abs_err=float(err), ms=ms_k, plain_ms=ms_p, library_ms=None,
+                **bound(n_words * 8 + (2 + sub_cap + unsub_cap) * 4))
         phase("10 K5", f"caps {sub_cap}/{unsub_cap} offset {offset}: equal; sub_n "
               f"{int(out_k[0])}, unsub_n {int(out_k[1])}, overflow {over}; kernel "
               f"{ms_k:.3f} ms, plain {ms_p:.3f} ms")
@@ -349,7 +401,9 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
     check(err == 0, f"propagate_visits differs from plain by {err}")
     ms_k = cuda_ms(lambda: feedback.propagate_visits(words, flags, passes), 10)
     ms_p = cuda_ms(lambda: feedback.propagate_visits_plain(words, flags, passes), 3)
-    report["propagate_visits"].update(max_abs_err=float(err), ms=ms_k, plain_ms=ms_p)
+    report["propagate_visits"].update(max_abs_err=float(err), ms=ms_k, plain_ms=ms_p,
+                                      library_ms=None,
+                                      **bound(n_words * 12))  # words, visits in; visits out
     phase("10 K6", f"{passes} passes equal to plain; {int((closed_k != flags).sum())} "
           f"interiors closed; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms (all passes)")
 
@@ -377,7 +431,7 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
         for k in totals:
             totals[k] += stats[k]
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in SESSION_KERNELS}
     for k, v in launches.items():
         report[k]["launches"] = v
     n_nodes, holes = sess.node_stats()
@@ -428,6 +482,220 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
           f"depth {LOCK_DEPTH}, {LOCK_RES[0]}x{LOCK_RES[1]}, {LOCK_STEPS} steps, "
           f"totals {lock_totals}, nodes {len(pair[1].octree)}, counted frames "
           f"on the table {pair[1]._frame_warped}")
+
+
+def knife_edges(dev, k_words, p_words, depth, base_depth, pos) -> tuple[int, float]:
+    """(cells where two packed grids differ, largest |v| at such a cell or
+    the cell above, from the plain SDF on the card)."""
+    from octree_tracer_tpu_torch.gen import procedural
+    from octree_tracer_tpu_torch.gen.sdf import island_sdf
+
+    a = procedural.unpack_grid(k_words, depth)
+    b = procedural.unpack_grid(p_words, depth)
+    cells = torch.nonzero(a != b)
+    if cells.shape[0] == 0:
+        return 0, 0.0
+    scale = procedural._grid_scale(depth, base_depth)
+    corner = torch.tensor(pos, dtype=torch.float32, device=dev)
+    pts = cells.to(torch.float32) * scale + corner
+    above = (cells + torch.tensor([0, 1, 0], device=dev)).to(torch.float32) * scale + corner
+    v = torch.minimum(island_sdf(pts).abs(), island_sdf(above).abs())
+    return int(cells.shape[0]), float(v.max())
+
+
+def gen_phases(dev, report, card) -> None:
+    """Phases 13-15: K7 on the production chunk, generate_world of the CLI's
+    default world, and Sessions over generated worlds."""
+    from octree_tracer_tpu_torch import kernels, native, state
+    from octree_tracer_tpu_torch.app.session import Session
+    from octree_tracer_tpu_torch.gen import procedural
+    from octree_tracer_tpu_torch.world.world import World
+
+    # 13. K7 against its plain version on the production chunk.
+    s = 1 << GEN_DEPTH
+    k_words = procedural.block_grid_packed(GEN_CORNER, GEN_DEPTH, 1, dev)
+    p_words = procedural.block_grid_packed_plain(GEN_CORNER, GEN_DEPTH, 1, dev)
+    n_diff, v_max = knife_edges(dev, k_words, p_words, GEN_DEPTH, 1, GEN_CORNER)
+    check(n_diff <= s ** 3 // 100_000 and v_max < 1e-4,
+          f"block_grid differs from plain on {n_diff} cells, |v| up to {v_max}")
+    ops = procedural.SDF_OPS * s * s * (s + 1)
+    report["block_grid"].update(
+        max_abs_err=float(n_diff), differing_cells=n_diff,
+        ms=cuda_ms(lambda: procedural.block_grid_packed(GEN_CORNER, GEN_DEPTH, 1, dev), 5),
+        plain_ms=cuda_ms(lambda: procedural.block_grid_packed_plain(
+            GEN_CORNER, GEN_DEPTH, 1, dev), 2),
+        library_ms=None, ops=ops, **bound(s ** 3 // 4, ops))
+    t0 = time.perf_counter()
+    host = k_words.cpu().numpy()
+    ptrs, _ = native.build_dense(host, GEN_DEPTH)
+    build_s = time.perf_counter() - t0
+    filled = int((procedural.unpack_grid(k_words, GEN_DEPTH) != 0).sum())
+    r = report["block_grid"]
+    phase("13 K7", f"{s}^3 chunk at {GEN_CORNER}, base depth 1: packed words "
+          f"{'equal' if n_diff == 0 else f'differ on {n_diff} knife-edge cells'}; "
+          f"{filled} filled cells; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: {ops:.3g} f32 ops); readback "
+          f"+ native.build_dense {ptrs.shape[0]} nodes in {build_s:.2f} s")
+
+    # 14. generate_world of the CLI's default world, counted.
+    root_dir = tempfile.mkdtemp(prefix="ot_genworld_")
+    try:
+        path = os.path.join(root_dir, "world")
+        proc = procedural.Procedural(chunk_depth=GEN_DEPTH, device=dev)
+        world = World()
+        mip_s, save_s = [], []
+        mip, save = world.generate_mip_tree, world.save_chunk
+
+        def timed_mip(cid):
+            t = time.perf_counter()
+            mip(cid)
+            mip_s.append(time.perf_counter() - t)
+
+        def timed_save(cid):
+            t = time.perf_counter()
+            save(cid)
+            save_s.append(time.perf_counter() - t)
+
+        world.generate_mip_tree, world.save_chunk = timed_mip, timed_save
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        world.generate_world(path, proc, world_depth=WORLD_DEPTH)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["block_grid"]
+        check(launches == 8 ** WORLD_DEPTH, f"block_grid launched {launches} times")
+        report["block_grid"]["launches"] = launches
+        loaded = World.load_world(path)
+        check(np.array_equal(loaded.chunks[0].pointers, world.chunks[0].pointers)
+              and np.array_equal(loaded.chunks[0].values, world.chunks[0].values),
+              "the reloaded root differs")
+        files = sorted(os.listdir(path))
+        mb = sum(os.path.getsize(os.path.join(path, f)) for f in files) / 2 ** 20
+        tm = proc.timings
+        phase("14 genworld", f"{card}: {len(files) - 1} chunks of {s}^3 + root in "
+              f"{gen_s:.1f} s ({mb:.0f} MiB on disk); per chunk: K7 + readback wait "
+              f"{[round(t['wait_s'], 3) for t in tm]} s, host build "
+              f"{[round(t['build_s'], 2) for t in tm]} s, mip "
+              f"{[round(t, 2) for t in mip_s]} s, save (IO pool) "
+              f"{[round(t, 2) for t in save_s]} s; nodes {[t['nodes'] for t in tm]}; "
+              f"K7 launches {launches}; root reloads equal")
+        gen_session(dev, path, card)
+
+        # 15b. CPU and CUDA Sessions in lockstep on a small generated world.
+        small = os.path.join(root_dir, "small")
+        World().generate_world(small, procedural.Procedural(chunk_depth=GEN_LOCK_DEPTH,
+                                                            device=dev), world_depth=1)
+        pair = [Session(World.load_world(small), *LOCK_RES, device=d) for d in ("cpu", dev)]
+        for s_ in pair:
+            s_.character.pos = LOCK_POS.copy()
+            s_.character.look = LOCK_LOOK.copy()
+            s_.settings.fov = FOV
+        before, loads, evictions = set(pair[0].world.chunks), 0, 0
+        for i in range(GEN_LOCK_STEPS):
+            if i == GEN_LOCK_TURN:
+                for s_ in pair:
+                    s_.character.turn(2400.0, 0.0, fov=FOV)
+            (img_c, _, st_c), (img_g, _, st_g) = (s_.step() for s_ in pair)
+            for s_ in pair:
+                s_.world.wait_for_loads()
+            check(torch.equal(img_c, img_g.cpu()), f"generated lockstep step {i}: images differ")
+            check(st_c == st_g, f"generated lockstep step {i}: stats {st_c} vs {st_g}")
+            check(torch.equal(pair[0].device_words, pair[1].device_words.cpu()),
+                  f"generated lockstep step {i}: pools differ")
+            now = set(pair[0].world.chunks)
+            check(now == set(pair[1].world.chunks), f"generated lockstep step {i}: chunks")
+            loads, evictions, before = loads + len(now - before), evictions + len(before - now), now
+        check(loads > 0, "the generated lockstep loaded no chunk")
+        phase("15 lockstep", f"CPU and CUDA Sessions equal at every step on a generated "
+              f"chunk_depth {GEN_LOCK_DEPTH} world: {LOCK_RES[0]}x{LOCK_RES[1]}, "
+              f"{GEN_LOCK_STEPS} steps, {loads} chunk loads, {evictions} evictions, "
+              f"nodes {len(pair[1].octree)}; "
+              f"{state.to_numpy_u32(pair[1].device_words).shape[0]} pool words")
+    finally:
+        shutil.rmtree(root_dir, ignore_errors=True)
+
+
+def gen_session(dev, path, card) -> None:
+    """Phase 15: the Session flying the generated world at 1080p until
+    chunks have streamed in and, after it turns away, been evicted. After
+    each step it waits for the chunk loads that step requested (a fly-through
+    slow enough for the disk), timed apart from the step."""
+    from octree_tracer_tpu_torch import kernels, state
+    from octree_tracer_tpu_torch.app.session import Session
+    from octree_tracer_tpu_torch.world.world import World
+
+    world = World.load_world(path)
+    sess = Session(world, W, H, device=dev)
+    sess.character.pos = CAM_POS.copy()
+    sess.character.look = CAM_LOOK.copy()
+    sess.settings.fov = FOV
+    kernels.reset_launches()
+    before, loads, evictions = set(world.chunks), 0, 0
+    step_ms, wait_ms, totals = [], [], {"subdivided": 0, "collapsed": 0, "patched": 0}
+    for i in range(GEN_STEPS):
+        if i == GEN_TURN:
+            sess.character.look = -CAM_LOOK  # away from the whole world
+        t0 = time.perf_counter()
+        img, _, stats = sess.step()
+        img.cpu()
+        t1 = time.perf_counter()
+        world.wait_for_loads()
+        step_ms.append((t1 - t0) * 1e3)
+        wait_ms.append((time.perf_counter() - t1) * 1e3)
+        now = set(world.chunks)
+        loads, evictions, before = loads + len(now - before), evictions + len(before - now), now
+        for k in totals:
+            totals[k] += stats[k]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for k in ("trace", "raygen", "shade_encode", "select_candidates"):
+        check(launches.get(k, 0) > 0, f"{k} never ran on the generated-world Session")
+    n_nodes, holes = sess.node_stats()
+    pool = state.to_numpy_u32(sess.device_words)
+    check(np.array_equal(pool[:n_nodes], sess.octree.nodes) and not pool[n_nodes:].any(),
+          "the device pool differs from the host octree")
+    check(loads > 0 and evictions > 0, f"chunks loaded {loads}, evicted {evictions}")
+    check(totals["subdivided"] > 0 and totals["collapsed"] > 0, f"totals {totals}")
+    phase("15 session", f"{card}: generated world ({GEN_DEPTH}+{WORLD_DEPTH} levels) "
+          f"{W}x{H}, {GEN_STEPS} steps (turned away at {GEN_TURN}): {loads} chunk loads, "
+          f"{evictions} evictions; median step {float(np.median(step_ms)):.1f} ms "
+          f"(before the turn {float(np.median(step_ms[:GEN_TURN])):.1f}, max "
+          f"{max(step_ms):.1f}); nodes {n_nodes}, bucket {sess.device_words.shape[0]}, "
+          f"holes {holes:.2f}%; totals {totals}; launches {launches}; pool = host "
+          f"octree; step ms {[round(t, 1) for t in step_ms]}; load waits ms "
+          f"{[round(t) for t in wait_ms]}")
+
+
+def probe_phase(dev, report) -> None:
+    """Phase 16: the probes' gathers and adds at their shapes, counted."""
+    from octree_tracer_tpu_torch import kernels
+    from octree_tracer_tpu_torch.probes import gather, gather_probe
+
+    kernels.reset_launches()
+    results = gather_probe.main(device=dev, log=lambda m: phase("16 probes", m))
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("gather_rows", "add_scalar")}
+    check(all(v > 0 for v in launches.values()), f"a probe kernel never ran: {launches}")
+    bad = [r["name"] for r in results if not (r["ok"] and r["plain_ok"])]
+    check(not bad, f"probe lines failed: {bad}")
+    # K8's word-by-word path: a width that is no multiple of 4, and a table
+    # view that is not 16-byte aligned.
+    rng = np.random.default_rng(3)
+    odd = torch.from_numpy(rng.integers(-2**31, 2**31, (4000, 3), dtype=np.int32)).to(dev)
+    flat = torch.from_numpy(rng.integers(-2**31, 2**31, 4 * 4000 + 1, dtype=np.int32)).to(dev)
+    shifted = flat[1:].view(4000, 4)
+    for t in (odd, shifted):
+        starts = rng.integers(0, 4000 - 5, 777)
+        st = gather.upload_starts(starts, dev)
+        check(torch.equal(gather.gather_rows(t, st, 5), gather.gather_rows_plain(t, st.tensor, 5)),
+              f"gather_rows differs from plain on a [4000, {t.shape[1]}] table")
+    phase("16 probes", "K8 equal to plain on a width-3 table and a misaligned width-4 view")
+    for kernel, line in (("gather_rows", "A per-row DMA K=8"), ("add_scalar", "t3")):
+        r = next(r for r in results if r["name"] == line)
+        report[kernel].update(
+            launches=launches[kernel], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", shape_of=line)
 
 
 if __name__ == "__main__":

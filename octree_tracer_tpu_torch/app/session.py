@@ -8,8 +8,9 @@ the world, and patches the device pool with the octree's journal.
 
 Differences from the JAX Session:
 
-- an explicit ``device``: the kernels run on a CUDA device, their plain
-  versions on the CPU;
+- an explicit ``device``, the card by default: the kernels run on a CUDA
+  device, their plain versions on the CPU only when the caller passes
+  ``device="cpu"``; without a card the default raises;
 - the result comes back in pixel order (no beam mode, ``raw_result`` or
   ``pre_permuted``);
 - deferred feedback reads the packed candidates back with a non-blocking
@@ -33,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import kernels, native
 from ..adaptive import engine, feedback
 from ..core.octree import Octree, node_depth
 from ..render import camera, skip, tracer
@@ -114,9 +115,9 @@ class Session:
 
     def __init__(self, world, width=1280, height=720,
                  pool_capacity=DEFAULT_POOL_CAPACITY, settings=None,
-                 use_native: bool | None = None, device="cpu"):
+                 use_native: bool | None = None, device="cuda"):
         self.world = world
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device)
         self.settings = settings or Settings()
         self.use_native = native.available() if use_native is None else use_native
         self.character = Character()

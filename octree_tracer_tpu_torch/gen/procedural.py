@@ -1,0 +1,229 @@
+"""Procedural chunk generation on the card (the port of the JAX package's
+``gen/procedural.py``).
+
+The island SDF is evaluated over the chunk's S^3 cell grid (S = 2^chunk_depth)
+and one extra y-plane: a cell inside the SDF is stone, or grass where the
+cell above is outside. On a CUDA device that grid comes out of kernel K7
+(``csrc/block_grid.cu``) already 2-bit-packed, 16 cells a word; on the CPU
+out of the plain PyTorch version, evaluated in x-slabs to bound memory as
+``procedural.py:60-78`` does. The host then builds the chunk's octree with
+the native dense builder (``native.build_dense``), or without the native
+library with ``scenes.build_octree_leaves``, the same breadth-first morton
+layout in NumPy.
+
+``Procedural.dispatch_chunk`` enqueues K7 and a non-blocking copy of its
+words into pinned host memory with a CUDA event; ``finish_chunk`` waits on
+that event and builds the tree, so ``World.generate_world`` overlaps the
+next chunk's SDF with this chunk's host build.
+
+Not ported: the structure stamps (``structures=True``), which need the
+``.vox`` structure loader of the io slice and its assets.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels, native
+from ..core.cpu_octree import CpuOctree
+from ..core.voxel import CHUNK_OFFSET
+from ..scenes import build_octree_leaves
+from ..state import narrow_u32
+from .sdf import island_sdf
+
+BLOCK_STONE = 1
+BLOCK_GRASS = 3
+# The plain version evaluates the grid in this many x-slabs to bound memory.
+X_SLABS = 32
+
+# f32 operations of one island_sdf evaluation as K7 executes it (adds,
+# subtracts, multiplies, divides, square roots, floors, fmods, min/max, abs,
+# compares and selects, each one operation; csrc/block_grid.cu counts them
+# function by function): simplex_noise3 372 (x4), sdf_box 19, sdf_cone 38,
+# smin 13, smoothstep 8 (x2), the island's own 38.
+SDF_OPS = 4 * 372 + 19 + 38 + 13 + 2 * 8 + 38
+
+
+@dataclass
+class GenSettings:
+    """Generator knobs; the island SDF reads none of them (as in the JAX
+    package), kept for API parity."""
+
+    seed: int = 0
+    scale: float = 0.2
+    height: float = 0.2
+
+
+def _grid_scale(chunk_depth: int, base_depth: int) -> float:
+    """Cell size of the chunk grid, ``f32(2 / 2^(base + chunk depth))``."""
+    return float(np.float32(2.0 / (1 << (base_depth + chunk_depth))))
+
+
+def _pos_array(pos) -> np.ndarray:
+    pos = np.asarray(pos, dtype=np.float32).reshape(-1)
+    if pos.shape != (3,):
+        raise ValueError(f"pos must hold 3 numbers, got {pos.shape[0]}")
+    return pos
+
+
+def block_grid_plain(pos, chunk_depth: int, base_depth: int, device="cpu") -> torch.Tensor:
+    """Plain PyTorch version: u8[S, S, S] block ids (0 empty) of the chunk
+    whose (-1, -1, -1) corner sits at world ``pos`` (3 numbers), on
+    ``device``. Coordinates are ``f32(i) * scale + pos``, as
+    ``procedural.py:57-63``."""
+    s = 1 << chunk_depth
+    x_slabs = min(X_SLABS, s)
+    scale = _grid_scale(chunk_depth, base_depth)
+    dev, f32 = torch.device(device), torch.float32
+    p = torch.from_numpy(_pos_array(pos).copy()).to(dev)
+    ys = torch.arange(s + 1, dtype=f32, device=dev) * scale + p[1]
+    zs = torch.arange(s, dtype=f32, device=dev) * scale + p[2]
+    n = s // x_slabs
+    out = torch.empty((s, s, s), dtype=torch.uint8, device=dev)
+    for x0 in range(0, s, n):
+        xs = (float(x0) + torch.arange(n, dtype=f32, device=dev)) * scale + p[0]
+        grid = torch.stack(torch.meshgrid(xs, ys, zs, indexing="ij"), dim=-1)
+        v = island_sdf(grid)
+        inside = v[:, :s, :] < 0.0
+        above_out = v[:, 1:, :] > 0.0
+        out[x0:x0 + n] = torch.where(
+            inside, torch.where(above_out, BLOCK_GRASS, BLOCK_STONE), 0).to(torch.uint8)
+    return out
+
+
+def pack_grid(grid: torch.Tensor) -> torch.Tensor:
+    """u8 block ids -> int32 words of u32 bits, 16 cells a word over the
+    flat C-order grid, cell ``16i + k`` in bits ``[2k, 2k + 1]``."""
+    flat = grid.reshape(-1, 16).to(torch.int64)
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=grid.device)
+    return narrow_u32((flat << shifts).sum(dim=1))
+
+
+def unpack_grid(packed: torch.Tensor, chunk_depth: int) -> torch.Tensor:
+    """Inverse of :func:`pack_grid`: u8[S, S, S]."""
+    s = 1 << chunk_depth
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=packed.device)
+    cells = (packed.to(torch.int64)[:, None] >> shifts) & 3
+    return cells.reshape(-1)[: s ** 3].to(torch.uint8).reshape(s, s, s)
+
+
+def block_grid_packed_plain(pos, chunk_depth: int, base_depth: int,
+                            device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of kernel K7 (see ``block_grid_packed``)."""
+    return pack_grid(block_grid_plain(pos, chunk_depth, base_depth, device))
+
+
+def _launch_block_grid(pos, chunk_depth: int, base_depth: int,
+                       device: torch.device) -> torch.Tensor:
+    """K7 on a CUDA ``device``: ceil(S^3 / 16) packed words."""
+    if not 0 <= chunk_depth <= 10:
+        raise ValueError(f"chunk_depth must be in [0, 10], got {chunk_depth}")
+    p = _pos_array(pos)
+    out = torch.empty(-(-(1 << (3 * chunk_depth)) // 16), dtype=torch.int32,
+                      device=device)
+    kernels.launch("block_grid", "ot_block_grid", device, float(p[0]), float(p[1]),
+                   float(p[2]), _grid_scale(chunk_depth, base_depth), chunk_depth,
+                   kernels.ptr(out))
+    return out
+
+
+def block_grid_packed(pos, chunk_depth: int, base_depth: int,
+                      device="cuda") -> torch.Tensor:
+    """The block ids of the chunk whose (-1, -1, -1) corner sits at world
+    ``pos`` (3 numbers), 2-bit-packed: int32 words of u32 bits, ``S^3 / 16``
+    of them (``chunk_depth >= 2``), cell ``16i + k`` of the flat C-order
+    grid in bits ``[2k, 2k + 1]``, the native builder's layout. On a CUDA
+    ``device`` this launches kernel K7; on the CPU it is
+    ``block_grid_packed_plain``."""
+    device = torch.device(device)
+    if chunk_depth < 2:
+        raise ValueError("a packed grid needs chunk_depth >= 2 (16 cells a word)")
+    if not kernels.uses_kernel(device):
+        return block_grid_packed_plain(pos, chunk_depth, base_depth, device)
+    return _launch_block_grid(pos, chunk_depth, base_depth, device)
+
+
+def block_grid(pos, chunk_depth: int, base_depth: int, device="cuda") -> torch.Tensor:
+    """u8[S, S, S] block ids of the chunk at ``pos``: on a CUDA ``device``
+    K7's words unpacked, on the CPU ``block_grid_plain``."""
+    device = torch.device(device)
+    if not kernels.uses_kernel(device):
+        return block_grid_plain(pos, chunk_depth, base_depth, device)
+    return unpack_grid(_launch_block_grid(pos, chunk_depth, base_depth, device),
+                       chunk_depth)
+
+
+class Procedural:
+    """Chunk generator. ``device`` defaults to the card; ``"cpu"`` runs the
+    plain versions. ``timings`` keeps, per finished chunk, the seconds spent
+    waiting for the grid (K7 and its readback, past what overlapped) and
+    building the tree, and the node count."""
+
+    def __init__(self, chunk_depth: int = 9, settings: GenSettings | None = None,
+                 structures: bool = False, device="cuda"):
+        if structures:
+            raise NotImplementedError(
+                "structures need the .vox structure loader of the io slice "
+                "(gen/structures.py loads them through io.vox.load_structure)")
+        self.chunk_depth = chunk_depth
+        self.settings = settings or GenSettings()
+        self.device = kernels.resolve_device(device)
+        self.timings: list[dict] = []
+
+    def dispatch_chunk(self, pos, base_depth: int):
+        """Enqueue the chunk's grid and return an opaque handle for
+        ``finish_chunk``; on the card the words are on their way into pinned
+        host memory when this returns."""
+        if self.chunk_depth >= 2 and native.available():
+            words = block_grid_packed(pos, self.chunk_depth, base_depth, self.device)
+            kind = "packed"
+        else:
+            words = block_grid(pos, self.chunk_depth, base_depth, self.device)
+            kind = "grid"
+        ready = None
+        if words.is_cuda:
+            host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+            host.copy_(words, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            words = host
+        return kind, words, ready
+
+    def finish_chunk(self, handle) -> CpuOctree | None:
+        """Wait for a ``dispatch_chunk`` handle and build the chunk's tree;
+        None for an empty chunk."""
+        kind, words, ready = handle
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+        t1 = time.perf_counter()
+        data = words.numpy()
+        if kind == "packed":
+            chunk = None
+            if data.any():
+                ptrs, vals = native.build_dense(data, self.chunk_depth)
+                chunk = CpuOctree.from_arrays(ptrs, vals, copy=False)
+        else:
+            chunk = self._grid_to_tree(data)
+        self.timings.append({"wait_s": t1 - t0, "build_s": time.perf_counter() - t1,
+                             "nodes": 0 if chunk is None else len(chunk)})
+        return chunk
+
+    def generate_chunk(self, pos, base_depth: int) -> CpuOctree | None:
+        """The chunk whose cell corner sits at world ``pos`` with cell size
+        2/2^base_depth; None for an empty chunk."""
+        return self.finish_chunk(self.dispatch_chunk(pos, base_depth))
+
+    def _grid_to_tree(self, grid: np.ndarray) -> CpuOctree | None:
+        occ = np.nonzero(grid)
+        if occ[0].size == 0:
+            return None
+        cells = np.stack(occ, axis=1).astype(np.uint32)
+        blocks = grid[occ].astype(np.uint32)
+        return build_octree_leaves(cells, CHUNK_OFFSET + blocks,
+                                   np.zeros(blocks.shape[0], dtype=np.uint32),
+                                   self.chunk_depth)

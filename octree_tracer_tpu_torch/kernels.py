@@ -36,9 +36,11 @@ NVCC_FLAGS = (
 
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0,
-            "select_candidates": 0, "propagate_visits": 0}
+            "select_candidates": 0, "propagate_visits": 0, "block_grid": 0,
+            "gather_rows": 0, "add_scalar": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_U32 = ctypes.c_uint32
 # argtypes of each C entry point; the last argument is always the stream.
 _SIGNATURES = {
     "ot_trace": [_P, _I64, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I] + [_P] * 9
@@ -48,6 +50,10 @@ _SIGNATURES = {
     "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 5,
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _P],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],
+    "ot_block_grid": [_F, _F, _F, _F, _I, _P, _P],
+    "ot_gather_rows": [_P, _I64, _P, _I64, _I, _P, _P],
+    "ot_add_scalar_f32": [_P, _P, _I64, _F, _P, _P],
+    "ot_add_scalar_u32": [_P, _P, _I64, _U32, _P, _P],
 }
 
 _lib = None
@@ -155,6 +161,17 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 def ptr(t: torch.Tensor | None) -> int | None:
     """Device pointer for a ctypes ``c_void_p`` argument (None -> NULL)."""
     return None if t is None else t.data_ptr()
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device on a host
+    without one, so an entry point that defaults to the card never drops to
+    the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available; "
+                           "pass device='cpu' for the plain PyTorch versions")
+    return device
 
 
 def uses_kernel(device: torch.device) -> bool:

@@ -1,16 +1,18 @@
 """ctypes bindings for the host engine library (``libotcore``).
 
-The library is built from the JAX package's C++ source,
-``octree_tracer_tpu/native/otcore.cpp``, so the engine has one source. Reading
-that file imports nothing of the JAX package. It is compiled at first use with
-``g++ -O2 -std=c++17 -fPIC -shared`` into ``_build/`` beside this file, under a
-name keyed on a hash of the source, so an edit rebuilds it. Importing this
-module builds nothing. Without a compiler, ``available()`` is False and the
-callers take their NumPy paths.
+The library is built from the port's own copy of the engine,
+``csrc/host/otcore.cpp`` (byte-equal to the JAX package's
+``native/otcore.cpp``; a test holds the two equal). It lies outside the
+``csrc/*.cu`` set that ``kernels.py`` hands to ``nvcc``. It is compiled at
+first use with ``g++ -O2 -std=c++17 -fPIC -shared`` into ``_build/`` beside
+this file, under a name keyed on a hash of the source, so an edit rebuilds
+it. Importing this module builds nothing. Without a compiler,
+``available()`` is False and the callers take their NumPy paths.
 
 Bound here: the batch adaptive engine (``otc_process_subdivision`` and
-``otc_process_unsubdivision``, driven by ``app.native_engine``) and the mip
-tree (``patch_refs``, ``mip_tree``, used by ``world.World``).
+``otc_process_unsubdivision``, driven by ``app.native_engine``), the mip
+tree (``patch_refs``, ``mip_tree``, used by ``world.World``) and the dense
+chunk build (``build_dense``, used by ``gen.procedural``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ import subprocess
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "octree_tracer_tpu", "native",
-                      "otcore.cpp")
+SOURCE = os.path.join(_HERE, "csrc", "host", "otcore.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -104,6 +105,15 @@ def load():
     lib.otc_process_unsubdivision.restype = ctypes.c_int64
     lib.otc_mip_tree.restype = ctypes.c_uint32
     lib.otc_patch_refs.restype = None
+    lib.otc_build_dense.restype = ctypes.c_void_p
+    lib.otc_build_dense.argtypes = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32]
+    lib.otc_buf_len.restype = ctypes.c_uint64
+    lib.otc_buf_len.argtypes = [ctypes.c_void_p]
+    lib.otc_buf_copy.restype = None
+    lib.otc_buf_copy.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
+                                 ctypes.POINTER(ctypes.c_uint32)]
+    lib.otc_buf_free.restype = None
+    lib.otc_buf_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     return _lib
 
@@ -114,8 +124,10 @@ def available() -> bool:
 
 def chunk_views(world) -> tuple:
     """OtChunk views over a World's resident chunks: (ctypes array, count,
-    keepalive list)."""
-    items = [(cid, c) for cid, c in world.chunks.items() if len(c) >= 8]
+    keepalive list). The chunk dict is copied in one step first: a chunk
+    load finishing on the World's IO pool inserts into it, and iterating
+    the live dict across that insert raises."""
+    items = [(cid, c) for cid, c in list(world.chunks.items()) if len(c) >= 8]
     arr = (OtChunk * max(1, len(items)))()
     keep = []
     for i, (cid, c) in enumerate(items):
@@ -151,3 +163,28 @@ def mip_tree(pointers: np.ndarray, values: np.ndarray) -> int:
         _u32p(np.ascontiguousarray(pointers)), _u32p(values),
         ctypes.c_uint64(pointers.shape[0]),
     ))
+
+
+def build_dense(packed: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """Level-synchronous octree build from a 2-bit-packed S^3 block-id grid
+    (S = 2^depth, flat C-order cells, 16 per u32, cell i in bits
+    [2i, 2i+1]): the tree of the grid's occupied cells as block-reference
+    leaves (``CHUNK_OFFSET + id``, 0) in breadth-first morton layout.
+    ``packed`` may hold the words as u32 or as int32 bits. Returns
+    (pointers, values)."""
+    lib = load()
+    packed = np.ascontiguousarray(packed).reshape(-1)
+    if packed.dtype not in (np.uint32, np.int32):
+        raise TypeError(f"packed must be u32 or int32 words, got {packed.dtype}")
+    packed = packed.view(np.uint32)
+    expect = (1 << (3 * depth)) // 16
+    if packed.shape[0] != expect:
+        raise ValueError(f"packed grid has {packed.shape[0]} words, "
+                         f"expected {expect} for depth {depth}")
+    h = lib.otc_build_dense(_u32p(packed), ctypes.c_uint32(depth))
+    n = lib.otc_buf_len(h)
+    ptrs = np.empty(n, dtype=np.uint32)
+    vals = np.empty(n, dtype=np.uint32)
+    lib.otc_buf_copy(h, _u32p(ptrs), _u32p(vals))
+    lib.otc_buf_free(h)
+    return ptrs, vals

@@ -6,7 +6,10 @@ random tree for tests. Both build pool words with :func:`build_leaves`, a
 vectorised NumPy replica of the JAX package's ``native.build_leaves`` layout,
 so the port builds the bench's pool word for word without the native library
 or any module of the JAX package. ``shell_world`` is the deep shell as a
-streaming world for the Session.
+streaming world for the Session. ``build_octree_leaves`` is the JAX package's
+level-synchronous builder (``io/vox.py:93-184``), copied: the breadth-first
+morton layout that the native dense builder also writes, which procedural
+chunks take without the native library.
 """
 
 from __future__ import annotations
@@ -75,6 +78,69 @@ def build_leaves(cells: np.ndarray, rgb: np.ndarray, depth: int) -> np.ndarray:
         else:
             words[slot] = (np.uint32(VOXEL_OFFSET) + leaf_rgb) << np.uint32(4)
     return words
+
+
+def _morton_encode(cells: np.ndarray, depth: int) -> np.ndarray:
+    """Interleave (x, y, z) cell coordinates into a morton path key whose
+    3-bit digit per level is (x_bit << 2) | (y_bit << 1) | z_bit, the
+    descent's child index."""
+    m = np.zeros(cells.shape[0], dtype=np.uint64)
+    x = cells[:, 0].astype(np.uint64)
+    y = cells[:, 1].astype(np.uint64)
+    z = cells[:, 2].astype(np.uint64)
+    for level in range(depth):
+        shift = np.uint64(depth - 1 - level)
+        digit = ((((x >> shift) & np.uint64(1)) << np.uint64(2))
+                 | (((y >> shift) & np.uint64(1)) << np.uint64(1))
+                 | ((z >> shift) & np.uint64(1)))
+        m = (m << np.uint64(3)) | digit
+    return m
+
+
+def build_octree_leaves(cells: np.ndarray, leaf_ptrs: np.ndarray,
+                        leaf_vals: np.ndarray, depth: int) -> CpuOctree:
+    """Level-synchronous octree build from integer ``cells`` at ``depth``
+    with arbitrary leaf (pointer, value) payloads: colour voxels
+    (``CHUNK_OFFSET``, rgb) or block references (``CHUNK_OFFSET + id``, 0).
+    The tree of repeated insertion (groups of 8 siblings along every path,
+    empties as (``CHUNK_OFFSET``, 0), a repeated cell keeps its last
+    payload) in breadth-first, morton-sorted layout."""
+    if depth < 1:
+        raise ValueError("octree depth must be >= 1")
+    morton = _morton_encode(cells, depth)
+    order = np.argsort(morton, kind="stable")
+    morton = morton[order]
+    leaf_ptrs = np.asarray(leaf_ptrs, dtype=np.uint32)[order]
+    colors = np.asarray(leaf_vals, dtype=np.uint32)[order]
+    keep = np.ones(morton.shape[0], dtype=bool)
+    keep[:-1] = morton[:-1] != morton[1:]  # keep the last of each run
+    morton, leaf_ptrs, colors = morton[keep], leaf_ptrs[keep], colors[keep]
+
+    # prefixes[L-1]: sorted unique depth-L prefixes; the root group always
+    # exists and level L+1 has one group per occupied depth-L node.
+    prefixes = [np.unique(morton >> np.uint64(3 * (depth - level)))
+                for level in range(1, depth + 1)]
+    group_counts = [1] + [len(p) for p in prefixes[:-1]]
+    starts = np.concatenate([[0], np.cumsum(np.asarray(group_counts) * 8)])
+    total = int(starts[-1])
+    ptr = np.full(total, CHUNK_OFFSET, dtype=np.uint32)
+    val = np.zeros(total, dtype=np.uint32)
+    for level in range(1, depth + 1):
+        p = prefixes[level - 1]
+        child = (p & np.uint64(7)).astype(np.int64)
+        if level == 1:
+            group_base = np.zeros(len(p), dtype=np.int64)
+        else:
+            rank = np.searchsorted(prefixes[level - 2], p >> np.uint64(3))
+            group_base = starts[level - 1] + 8 * rank
+        slots = group_base + child
+        if level < depth:
+            rank_here = np.arange(len(p), dtype=np.int64)
+            ptr[slots] = (starts[level] + 8 * rank_here).astype(np.uint32)
+        else:
+            ptr[slots] = leaf_ptrs
+            val[slots] = colors
+    return CpuOctree.from_arrays(ptr, val)
 
 
 def shell_cells(depth: int) -> tuple[np.ndarray, np.ndarray]:

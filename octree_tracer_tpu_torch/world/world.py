@@ -1,19 +1,23 @@
-"""World: chunk store, mip trees, async chunk streaming (the JAX package's
-``world/world.py``, copied; tests hold it equal to the original).
+"""World: chunk store, mip trees, async chunk streaming, world generation
+(the JAX package's ``world/world.py``, copied; tests hold it equal to the
+original, and the files ``generate_world`` writes byte-equal to its).
 
 A dict of ``CpuOctree`` chunks keyed by id (0 = root, 1..8 = block library,
->= CHUNK_OFFSET/2 = generated terrain), a thread pool for async chunk loads,
-and the mip generation as per-level NumPy passes or the native library.
-Chunk files are ``<dir>/<id>.bin`` in ``cpu_octree.BIN_DTYPE`` layout.
+>= CHUNK_OFFSET/2 = generated terrain), a thread pool for async chunk loads
+and saves, and the mip generation as per-level NumPy passes or the native
+library. Chunk files are ``<dir>/<id>.bin`` in ``cpu_octree.BIN_DTYPE``
+layout. ``wait_for_loads`` is the port's addition, for runs that step two
+Sessions in lockstep.
 
 Not ported yet: the block library from ``.vox`` assets (``load_blocks``,
-which needs the ``io`` loaders) and ``generate_world`` (the ``gen`` slice).
+which needs the ``io`` loaders).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -70,6 +74,15 @@ class World:
                     self.loading.discard(index)
 
         self._pool.submit(work)
+
+    def wait_for_loads(self) -> None:
+        """Block until every requested chunk load has finished (or
+        failed)."""
+        while True:
+            with self._lock:
+                if not self.loading:
+                    return
+            time.sleep(0.0005)
 
     def evict_chunk(self, index: int) -> None:
         if self.verbose:
@@ -164,3 +177,49 @@ class World:
         for frontier in reversed(levels):
             val[frontier] = average(ptr[frontier].astype(np.int64))
         tree.top_mip = np.uint32(average(np.zeros(1, dtype=np.int64))[0])
+
+    def generate_world(self, path: str, procedural, world_depth: int = 1,
+                       progress=None) -> None:
+        """Generate a (2^world_depth)^3 grid of terrain chunks, mip and save
+        each, and assemble the root chunk of chunk references.
+
+        A three-way pipeline: the device computes chunk i+1's grid while the
+        host builds chunk i's tree, and each finished chunk's disk write and
+        free run on the IO pool."""
+        os.makedirs(path, exist_ok=True)
+        self.path = path
+        root = CpuOctree(0)
+        world_size = 1 << world_depth
+        voxel_size = 2.0 / world_size
+        cells = [(x, y, z) for x in range(world_size) for y in range(world_size)
+                 for z in range(world_size)]
+
+        def cell_pos(cell):
+            return np.array(cell, dtype=np.float32) * voxel_size - 1.0
+
+        def save_and_free(index):
+            self.save_chunk(index)
+            self.chunks[index].free_nodes()
+
+        saves = []
+        handle = procedural.dispatch_chunk(cell_pos(cells[0]), world_depth)
+        for i, cell in enumerate(cells):
+            nxt = (procedural.dispatch_chunk(cell_pos(cells[i + 1]), world_depth)
+                   if i + 1 < len(cells) else None)
+            chunk = procedural.finish_chunk(handle)
+            handle = nxt
+            index = int(CHUNK_OFFSET) // 2 + i
+            if chunk is not None:
+                if self.verbose:
+                    print(f"{cell}: {len(chunk) / 1e6:.1f} million nodes")
+                self.chunks[index] = chunk
+                self.generate_mip_tree(index)
+                saves.append(self._pool.submit(save_and_free, index))
+                root.put_in_block(cell_pos(cell), index, world_depth)
+            if progress:
+                progress(i + 1, world_size ** 3)
+        for f in saves:
+            f.result()  # raise IO errors before the world counts as done
+        self.chunks[0] = root
+        self.generate_mip_tree(0)
+        self.save_chunk(0)

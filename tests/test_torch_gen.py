@@ -1,0 +1,265 @@
+"""Procedural generation in the port: the noise and SDF functions, the block
+grid (the plain version of kernel K7), ``Procedural`` and
+``World.generate_world`` against the JAX package's, and a port Session
+against a JAX Session on a generated world.
+
+JAX's reference here is its functions as written, evaluated op by op
+(``jax.disable_jit``): the port repeats them operation for operation and
+equals them bit for bit. Compiled by XLA's CPU build, the same functions
+contract multiply-adds into FMAs differently in different fusions, so two
+copies of one simplex ``x0`` component can compare unequal; where a grid
+point ties two components (common on a regular grid), the compiled noise
+takes another corner order and v moves by up to about 0.07. The compiled
+``_block_grid`` therefore differs from its own op-by-op evaluation, and so
+from the port, on a few cells in 10^4; ``test_block_grid_equals_jax`` bounds
+that share.
+"""
+
+import functools
+import os
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from octree_tracer_tpu import native as jnative
+from octree_tracer_tpu.app.session import Session as JSession
+from octree_tracer_tpu.gen import noise as jnoise
+from octree_tracer_tpu.gen import procedural as jproc
+from octree_tracer_tpu.gen.sdf import island_sdf as jisland_sdf
+from octree_tracer_tpu.world.world import World as JWorld
+from octree_tracer_tpu_torch import native, state
+from octree_tracer_tpu_torch.app.session import Session
+from octree_tracer_tpu_torch.gen import noise, procedural
+from octree_tracer_tpu_torch.gen.sdf import island_sdf
+from octree_tracer_tpu_torch.world.world import World
+
+# Noise, SDF and rotation values are of order 1; JAX's jnp.linalg.norm and
+# reductions inside them round a few ulps apart from the port's left-to-right
+# sums. |port - jax| <= ATOL + RTOL * |jax|.
+ATOL, RTOL = 2e-6, 2e-6
+# The fract-sin hash multiplies sin by 43758.5453: a one-ulp sin difference
+# moves the fraction by up to ~4e-3, and a fraction near 0 or 1 wraps.
+HASH_TOL = 1e-2
+# Share of cells on which XLA's compiled _block_grid may differ (module
+# docstring): measured 9 / 32,768 (corner, chunk_depth 5), 41 / 262,144
+# (corner, 6) and 38 / 32,768 (the (-0.25, -0.5, 0.25) chunk at base 3).
+COMPILED_BUDGET = 2e-3
+
+PTS = np.random.default_rng(0).uniform(-2, 2, (4096, 3)).astype(np.float32)
+AXIS = np.array([0.3, -0.5, 0.8], np.float32)
+
+
+def _j(x):
+    return jnp.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+FUNCS = {
+    "simplex_noise3": (jnoise.simplex_noise3, noise.simplex_noise3),
+    "sdf_box": (lambda p: jnoise.sdf_box(p, (0.7, 0.1, 0.7)),
+                lambda p: noise.sdf_box(p, (0.7, 0.1, 0.7))),
+    "sdf_cone": (lambda p: jnoise.sdf_cone(p, (0.5, 0.5), 0.9),
+                 lambda p: noise.sdf_cone(p, (0.5, 0.5), 0.9)),
+    "smin": (lambda p: jnoise.smin(p[:, 0], p[:, 1], 0.2),
+             lambda p: noise.smin(p[:, 0], p[:, 1], 0.2)),
+    "smoothstep": (lambda p: jnoise.smoothstep(0.0, 0.2, p[:, 1]) + jnoise.smoothstep(
+        0.0, -1.5, p[:, 2]), lambda p: noise.smoothstep(0.0, 0.2, p[:, 1])
+        + noise.smoothstep(0.0, -1.5, p[:, 2])),
+    "rotate_x": (lambda p: jnoise.rotate_x(p, 0.7), lambda p: noise.rotate_x(p, 0.7)),
+    "rotate_y": (lambda p: jnoise.rotate_y(p, -1.3), lambda p: noise.rotate_y(p, -1.3)),
+    "rotate_z": (lambda p: jnoise.rotate_z(p, 2.1), lambda p: noise.rotate_z(p, 2.1)),
+    "rotate": (lambda p: jnoise.rotate(p, _j(AXIS), 1.1), lambda p: noise.rotate(p, AXIS, 1.1)),
+    "island_sdf": (jisland_sdf, island_sdf),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUNCS))
+def test_noise_and_sdf_equal_jax(name):
+    jf, tf = FUNCS[name]
+    want = np.asarray(jf(_j(PTS)))
+    got = tf(_t(PTS)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_hash_rand_equals_jax():
+    want = np.asarray(jnoise.hash_rand(_j(PTS)))
+    got = noise.hash_rand(_t(PTS)).numpy()
+    d = np.abs(got - want)
+    assert np.minimum(d, 1.0 - d).max() <= HASH_TOL
+    assert ((got >= 0) & (got < 1)).all()
+
+
+def test_floor_mod_is_jax_remainder():
+    x = np.concatenate([np.arange(-900, 900, dtype=np.float32),
+                        np.array([-0.0, 25558293.0, -25558293.0], np.float32)])
+    np.testing.assert_array_equal(noise.floor_mod(_t(x), 289.0).numpy(),
+                                  np.asarray(_j(x) % 289.0))
+
+
+def _jax_grid(pos, depth, base, packed=False):
+    """JAX's _block_grid(_packed) op by op, in one x-slab (the slab count
+    changes no value)."""
+    fn = jproc._block_grid_packed if packed else jproc._block_grid
+    with jax.disable_jit():
+        return np.asarray(fn(_j(np.asarray(pos, np.float32)), depth, base, x_slabs=1))
+
+
+# The corner chunk of a depth-1 world, and two interior chunks.
+GRIDS = [(5, (-1.0, -1.0, -1.0), 1), (6, (-1.0, -1.0, -1.0), 1),
+         (5, (0.0, -1.0, -0.5), 2), (6, (-0.5, -0.25, 0.0), 2),
+         (5, (-0.25, -0.5, 0.25), 3), (6, (0.0, -0.5, -0.5), 1)]
+
+
+@pytest.mark.parametrize("depth,pos,base", GRIDS)
+def test_block_grid_equals_jax(depth, pos, base):
+    want = _jax_grid(pos, depth, base)
+    got = procedural.block_grid(pos, depth, base, device="cpu").numpy()
+    assert got.shape == (1 << depth,) * 3 and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (got > 0).sum() < got.size
+    assert set(np.unique(got)) <= {0, procedural.BLOCK_STONE, procedural.BLOCK_GRASS}
+    compiled = np.asarray(jproc._block_grid(_j(np.asarray(pos, np.float32)), depth, base))
+    assert (compiled != got).mean() <= COMPILED_BUDGET
+
+
+@pytest.mark.parametrize("depth,pos,base", GRIDS[:3])
+def test_block_grid_packed_equals_jax(depth, pos, base):
+    want = _jax_grid(pos, depth, base, packed=True)
+    got = procedural.block_grid_packed(pos, depth, base, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == ((1 << 3 * depth) // 16,)
+    np.testing.assert_array_equal(state.to_numpy_u32(got), want)
+    grid = procedural.block_grid(pos, depth, base, device="cpu")
+    assert torch.equal(procedural.unpack_grid(got, depth), grid)
+    assert torch.equal(procedural.pack_grid(grid), got)
+
+
+def test_block_grid_small_chunks_and_packing_limit():
+    for depth in (1, 3):
+        want = _jax_grid((-1.0, -0.25, -1.0), depth, 1)
+        got = procedural.block_grid((-1.0, -0.25, -1.0), depth, 1, device="cpu").numpy()
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        procedural.block_grid_packed((-1.0, -1.0, -1.0), 1, 1, device="cpu")
+
+
+@pytest.fixture
+def fast_jax_gen(monkeypatch):
+    """JAX's generator evaluated op by op in one x-slab."""
+    monkeypatch.setattr(jproc, "_block_grid_packed",
+                        functools.partial(jproc._block_grid_packed, x_slabs=1))
+    with jax.disable_jit():
+        yield
+
+
+@pytest.mark.parametrize("path", ["packed", "leaves"])
+def test_generate_chunk_equals_jax(path, monkeypatch, fast_jax_gen):
+    """Pointers and values of a generated chunk: the native dense build, and
+    without the native library the NumPy level build."""
+    if path == "leaves":
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(jproc, "_block_grid", functools.partial(jproc._block_grid,
+                                                                    x_slabs=1))
+    for pos, base in (((-1.0, -1.0, -1.0), 1), ((0.0, -0.5, -0.5), 2)):
+        a = procedural.Procedural(chunk_depth=4, device="cpu").generate_chunk(pos, base)
+        b = jproc.Procedural(chunk_depth=4).generate_chunk(np.asarray(pos, np.float32), base)
+        np.testing.assert_array_equal(a.pointers, b.pointers)
+        np.testing.assert_array_equal(a.values, b.values)
+    empty = procedural.Procedural(chunk_depth=3, device="cpu").generate_chunk(
+        (0.5, 0.5, 0.5), 2)
+    assert empty is None
+
+
+def test_procedural_device_and_structures(monkeypatch):
+    with pytest.raises(NotImplementedError, match="io slice"):
+        procedural.Procedural(chunk_depth=4, structures=True, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        procedural.Procedural(chunk_depth=4)
+    p = procedural.Procedural(chunk_depth=4, device="cpu")
+    p.generate_chunk((-1.0, -1.0, -1.0), 1)
+    assert p.timings[0]["nodes"] > 8 and p.timings[0]["build_s"] >= 0.0
+
+
+@pytest.fixture
+def generated(tmp_path, monkeypatch):
+    """A chunk_depth 4, world_depth 1 world generated by both packages (JAX
+    op by op in one x-slab)."""
+    monkeypatch.setattr(jproc, "_block_grid_packed",
+                        functools.partial(jproc._block_grid_packed, x_slabs=1))
+    with jax.disable_jit():
+        JWorld(load_blocks=False).generate_world(
+            str(tmp_path / "jax"), jproc.Procedural(chunk_depth=4), world_depth=1)
+    done = []
+    World().generate_world(str(tmp_path / "port"),
+                           procedural.Procedural(chunk_depth=4, device="cpu"), world_depth=1,
+                           progress=lambda i, n: done.append((i, n)))
+    assert done[-1] == (8, 8)
+    return tmp_path
+
+
+def test_generate_world_files_equal_jax(generated):
+    files = sorted(os.listdir(generated / "jax"))
+    assert sorted(os.listdir(generated / "port")) == files and "0.bin" in files
+    assert len(files) > 2
+    for f in files:
+        assert (generated / "port" / f).read_bytes() == (generated / "jax" / f).read_bytes(), f
+    w = World.load_world(str(generated / "port"))
+    jw = JWorld.load_world(str(generated / "jax"), load_blocks=False)
+    np.testing.assert_array_equal(w.chunks[0].pointers, jw.chunks[0].pointers)
+    np.testing.assert_array_equal(w.chunks[0].values, jw.chunks[0].values)
+    cid = int(f"{files[1].split('.')[0]}")
+    w.load_chunk(cid)
+    w.wait_for_loads()
+    assert len(w.chunks[cid]) > 8
+
+
+def _jax_wait(world):
+    while world.loading:
+        time.sleep(0.0005)
+
+
+def test_session_on_generated_world_equals_jax(generated):
+    """A port Session and a JAX Session on the generated world, stepped
+    together, each waiting for its chunk loads after a step: equal images,
+    stats, pools and resident chunks at every step, through chunk loads and,
+    after the turn, collapses and evictions."""
+    a = Session(World.load_world(str(generated / "port")), 32, 32, pool_capacity=65536,
+                device="cpu")
+    b = JSession(JWorld.load_world(str(generated / "port"), load_blocks=False), 32, 32,
+                 pool_capacity=65536)
+    for s in (a, b):
+        s.character.pos = np.array([0.25, 0.35, -2.3], np.float32)
+        s.character.look = np.array([-0.12, -0.17, 1.0], np.float32)
+        s.settings.fov = 70.0
+    loads, evictions, totals = 0, 0, {"subdivided": 0, "collapsed": 0}
+    before = set(a.world.chunks)
+    for i in range(12):
+        if i == 8:
+            for s in (a, b):
+                s.character.turn(2400.0, 0.0, fov=70.0)
+        img_a, _, st_a = a.step()
+        img_b, _, st_b = b.step()
+        a.world.wait_for_loads()
+        _jax_wait(b.world)
+        np.testing.assert_array_equal(img_a.numpy(), np.asarray(img_b), err_msg=f"step {i}")
+        assert st_a == st_b, f"step {i}: {st_a} vs {st_b}"
+        np.testing.assert_array_equal(state.to_numpy_u32(a.device_words),
+                                      np.asarray(b.device_words), err_msg=f"step {i}")
+        now = set(a.world.chunks)
+        assert now == set(b.world.chunks), f"step {i}"
+        loads += len(now - before)
+        evictions += len(before - now)
+        before = now
+        for k in totals:
+            totals[k] += st_a[k]
+    assert loads > 0 and totals["subdivided"] > 0
+    assert evictions > 0 and totals["collapsed"] > 0

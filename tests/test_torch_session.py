@@ -10,6 +10,7 @@ knife-edge rays, and one flipped ray can flip an LOD decision.
 
 import numpy as np
 import pytest
+import torch
 
 from octree_tracer_tpu.app.session import Session as JSession
 from octree_tracer_tpu.core import CpuOctree as JCpuOctree
@@ -38,7 +39,7 @@ def _aim(s, look=LOOK):
 
 def _port_session(depth=6, use_native=None, **settings):
     s = Session(scenes.shell_world(depth), RES, RES, pool_capacity=65536,
-                use_native=use_native)
+                use_native=use_native, device="cpu")
     _aim(s)
     for k, v in settings.items():
         setattr(s.settings, k, v)
@@ -87,7 +88,8 @@ def test_session_lockstep_equals_jax(config):
     warp+skip table from the first frame, so its counted frames take the
     visit closure and its patches the incremental table invalidation."""
     chunks = state.world_to_numpy(scenes.shell_world(6))
-    a = Session(state.world_from_numpy(chunks), RES, RES, pool_capacity=65536)
+    a = Session(state.world_from_numpy(chunks), RES, RES, pool_capacity=65536,
+                device="cpu")
     b = JSession(_jax_world(chunks), RES, RES, pool_capacity=65536)
     for s in (a, b):
         _aim(s)
@@ -221,3 +223,12 @@ def test_reset_world_and_node_stats():
     assert s._pending_feedback is None
     assert_pool_is_host(s)
     assert s.step()[2]["subdivided"] > 0
+
+
+def test_session_defaults_to_the_card(monkeypatch):
+    """Built without a device the Session runs on the card; on a host
+    without CUDA it raises instead of dropping to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Session(scenes.shell_world(3), RES, RES)
+    assert Session(scenes.shell_world(3), RES, RES, device="cpu").device.type == "cpu"

@@ -4,6 +4,7 @@ same inputs, and the deep shell as a streaming world equals the bench pool
 word for word."""
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from octree_tracer_tpu.core import CpuOctree as JCpuOctree
 from octree_tracer_tpu.core import voxel as jvoxel
 from octree_tracer_tpu.core.octree import Octree as JOctree
 from octree_tracer_tpu.world.world import World as JWorld
-from octree_tracer_tpu_torch import native, scenes, state
+from octree_tracer_tpu_torch import kernels, native, scenes, state
 from octree_tracer_tpu_torch.adaptive import engine
 from octree_tracer_tpu_torch.app import native_engine
 from octree_tracer_tpu_torch.core import voxel
@@ -276,7 +277,14 @@ def test_native_engine_equals_jax_native_engine():
 
 
 def test_native_library_builds_from_the_jax_source():
-    assert native.SOURCE.endswith("octree_tracer_tpu/native/otcore.cpp")
+    """The host engine builds from the port's own copy of the JAX package's
+    ``native/otcore.cpp``, byte for byte, inside the port."""
+    port_dir = os.path.dirname(os.path.abspath(native.__file__))
+    assert os.path.commonpath([port_dir, os.path.abspath(native.SOURCE)]) == port_dir
+    jax_source = os.path.join(os.path.dirname(os.path.abspath(jnative.__file__)), "otcore.cpp")
+    with open(native.SOURCE, "rb") as a, open(jax_source, "rb") as b:
+        assert a.read() == b.read()
+    assert native.SOURCE not in kernels.sources()
     path = native.library_path()
     assert path.startswith(native.BUILD_DIR)
     lib = native.load()
@@ -294,3 +302,30 @@ def test_world_round_trip_through_numpy():
         np.testing.assert_array_equal(a.chunks[cid].pointers, c.pointers)
         np.testing.assert_array_equal(a.chunks[cid].values, c.values)
         assert a.chunks[cid].top_mip == c.top_mip
+
+
+@pytest.mark.parametrize("depth", [2, 4, 5])
+def test_build_dense_equals_jax_binding(depth):
+    """``native.build_dense`` against the JAX package's binding on random
+    packed grids (block ids 0-3, about a third of the cells filled), and on
+    int32 words of the same bits, and on the NumPy level build of the same
+    cells."""
+    rng = np.random.default_rng(depth)
+    cells = rng.choice(4, size=1 << (3 * depth), p=[0.66, 0.17, 0.0, 0.17]).astype(np.uint32)
+    packed = (cells.reshape(-1, 16) << (2 * np.arange(16, dtype=np.uint32))).sum(
+        axis=1, dtype=np.uint32)
+    ptrs, vals = native.build_dense(packed, depth)
+    jptrs, jvals = jnative.build_dense(packed, depth)
+    np.testing.assert_array_equal(ptrs, jptrs)
+    np.testing.assert_array_equal(vals, jvals)
+    ptrs_i, _ = native.build_dense(packed.view(np.int32), depth)
+    np.testing.assert_array_equal(ptrs_i, jptrs)
+    tree = scenes.build_octree_leaves(
+        np.argwhere(cells.reshape((1 << depth,) * 3) > 0),
+        voxel.CHUNK_OFFSET + cells[cells > 0], np.zeros(int((cells > 0).sum()), np.uint32),
+        depth)
+    np.testing.assert_array_equal(tree.pointers, ptrs)
+    with pytest.raises(ValueError):
+        native.build_dense(packed[:-1], depth)
+    with pytest.raises(TypeError):
+        native.build_dense(packed.astype(np.float32), depth)
