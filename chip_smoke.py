@@ -7,7 +7,10 @@ plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
 
 - the frame: the bench's deep10 scene at 1920x1080 with shadows and the
-  combined level-7 warp+skip table (phases 3-8);
+  combined level-7 warp+skip table (phases 3-8): K1's tiled call from one
+  stride-0 origin against the flat contiguous call and the plain version,
+  K1's shadow mode against ``shadow_rays`` + ``trace_plain``, and a
+  ``torch.profiler`` breakdown of the frame;
 - the adaptive streaming Session on the deep10 shell world at 1920x1080,
   with visit counting, candidate selection and the visit closure on the
   card (phases 9-11), and a CPU Session (plain versions) against a CUDA
@@ -17,7 +20,9 @@ against the NumPy oracle on a subsample, and drives the main paths:
   Session flying that generated world, streaming its chunks in and out,
   with a CPU-vs-CUDA lockstep on a small generated world (15);
 - the probes' row gathers and scalar adds at every shape of
-  ``probes/gather_probe.py`` and ``probes/pallas_min_probe.py`` (16).
+  ``probes/gather_probe.py`` and ``probes/pallas_min_probe.py``, and the
+  one-block lines t3, t6, t9 and t10b timed again 21 times each, kernel and
+  library call in turn (16).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -27,15 +32,17 @@ JSON object with each kernel's launches on the Session path (and on the
 frame path), its largest difference from the plain version and both times;
 the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``bound_ms`` is the least time the card could take for its work in this run
-(bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger), and
-``library_ms`` the time of the one PyTorch call that computes the same
-function, where there is one.
+(bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger; K1's
+counts each 32-byte pool row that this run's rays touch once, as their visit
+counts show, and K6's every pass), and ``library_ms`` the time of the one
+PyTorch call that computes the same function, where there is one.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,6 +61,10 @@ CAM_LOOK = np.array([-0.1, -0.15, 1.0], np.float32)
 FOV = 70.0
 ORACLE_RAYS = 16384
 WARMUP, TIMED = 2, 5
+PROFILED = 5
+# Phase 16: the one-block probe lines whose single samples read slower than
+# their library call, timed again in turn.
+RETIMED, RETIME_SAMPLES = ("t3", "t6", "t9", "t10b"), 21
 SESSION_STEPS = 24
 # Phase 12: a generic camera (from the default Character view knife-edge
 # rays can flip between implementations), and a turn for collapses.
@@ -126,6 +137,45 @@ def bound(nbytes: float, ops: float = 0.0) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from ptxas's mangled one (the last component of a
+    nested name); K1's with its template arguments (strict descent, table
+    mode, visit mode, shadow mode)."""
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)E", mangled)
+    if m:
+        return "trace_kernel<strict={}, table={}, visits={}, shadow={}>".format(*m.groups())
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        name, pos = mangled[start:start + int(m.group())], start + int(m.group())
+    return name
+
+
+def profile_frames(fn, reps: int):
+    """Device time by kernel over ``reps`` calls of ``fn`` from
+    torch.profiler: ([(kernel, ms a call)], busy share of the window from the
+    first kernel's start to the last one's end)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    by_kernel = sorted(((e.key, getattr(e, "self_device_time_total",
+                                        getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3)
+                        for e in prof.key_averages()), key=lambda kv: -kv[1])
+    return [kv for kv in by_kernel if kv[1] > 0], (busy / window if window else 0.0)
+
+
 def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -160,9 +210,9 @@ def run(dev: torch.device) -> int:
     path, log = kernels.build()
     kernels.library()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {path}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            phase("2 build", line.strip())
+    for fn, regs, spill_st, spill_ld in kernels.register_report(log):
+        phase("2 build", f"{kernel_name(fn)}: {regs} registers, spill stores "
+              f"{spill_st} B, spill loads {spill_ld} B")
 
     # 3. The deep10 scene on the card.
     t0 = time.perf_counter()
@@ -214,14 +264,21 @@ def run(dev: torch.device) -> int:
           f"{report['raygen']['ms']:.3f} ms, plain {report['raygen']['plain_ms']:.3f} ms")
 
     # 6. K1 against its plain version on the full primary wavefront, and
-    #    against the NumPy oracle (no table) on a fixed subsample.
+    #    against the NumPy oracle (no table) on a fixed subsample. The frame's
+    #    call (image tiles, one stride-0 origin) against the flat call with
+    #    contiguous origins, and the shadow mode against shadow_rays +
+    #    trace_plain on every ray, culled and not.
     n = W * H
     flat = dirs.reshape(n, 3)
-    origins = origin.reshape(1, 3).expand(n, 3).contiguous()
-    res_k = tracer.trace(words, origins, flat, warp_table=table)
+    origins = origin.reshape(1, 3).expand(n, 3)  # stride 0, as render_frame
+    origins_c = origins.contiguous()
+    res_k = tracer.trace(words, origins, dirs, warp_table=table)
+    res_lin = tracer.trace(words, origins_c, flat, warp_table=table)
+    check(all(torch.equal(x, y) for x, y in zip(res_k, res_lin)),
+          "trace: the tiled stride-0 call differs from the flat contiguous call")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res_p = tracer.trace_plain(words, origins, flat, warp_table=table)
+    res_p = tracer.trace_plain(words, origins_c, flat, warp_table=table)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     a_k, a_p = tracer.to_numpy(res_k), tracer.to_numpy(res_p)
@@ -230,14 +287,47 @@ def run(dev: torch.device) -> int:
     frac = float((~agree).mean())
     check(frac < 0.005, f"trace kernel disagrees with plain on {frac:.4%} of rays")
     check(hp_err <= 1e-5, f"trace hit_pos differs from plain by {hp_err}")
+    sh_k = tracer.trace_shadow(words, res_k, warp_table=table, image_width=W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh_p = tracer.trace_plain(words, *tracer.shadow_rays(res_k), warp_table=table).hit
+    torch.cuda.synchronize()
+    sh_plain_s = time.perf_counter() - t0
+    sh_all = tracer.trace_shadow(words, res_k, cull=False, warp_table=table, image_width=W)
+    sh_all_p = tracer.trace_plain(words, *tracer.shadow_rays(res_k, cull=False),
+                                  warp_table=table).hit
+    sh_diff = int((sh_k != sh_p).sum()) + int((sh_all != sh_all_p).sum())
+    check(sh_diff == 0, f"trace_shadow differs from shadow_rays + trace_plain on {sh_diff} rays")
+    # Loop trips, and the 32-byte pool rows they read: the count-mode visits
+    # of the same rays.
+    trips_v = torch.zeros(words.shape[0], dtype=torch.int32, device=dev)
+    tracer.trace(words, origins, dirs, warp_table=table, visits=trips_v)
+    sh_trips_v = torch.zeros_like(trips_v)
+    tracer.trace_shadow(words, res_k, warp_table=table, visits=sh_trips_v, image_width=W)
+    trips, sh_trips = int(trips_v.sum()), int(sh_trips_v.sum())
+    rows, sh_rows = (int(torch.unique(torch.nonzero(v).flatten() >> 3).numel())
+                     for v in (trips_v, sh_trips_v))
+    prim_hits = int(res_k.hit.sum())
+    sh_active = int(tracer.shadow_rays(res_k)[2].sum())
     report["trace"].update(
         max_abs_err=hp_err,
-        ms=cuda_ms(lambda: tracer.trace(words, origins, flat, warp_table=table), 5),
+        ms=cuda_ms(lambda: tracer.trace(words, origins, dirs, warp_table=table), TIMED),
         plain_ms=plain_s * 1e3,
         library_ms=None,
-        # One 32-byte group row a loop trip (this frame's steps), plus each
-        # ray's 24 bytes in and 42 bytes of results out.
-        **bound(int(res_k.steps.sum()) * 32 + n * 66),
+        # Each byte the kernel must move, once: every pool row the rays touch
+        # (a trip that reads a row again finds it in L2; the table's reads
+        # are not counted), the one origin, each ray's direction in and 42
+        # bytes of results out.
+        trips=trips, rows=rows, **bound(rows * 32 + 12 + n * 54),
+        linear_ms=cuda_ms(lambda: tracer.trace(words, origins_c, flat, warp_table=table),
+                          TIMED),
+        # The shadow mode: the rows its rays touch, each ray's primary hit in
+        # and shadow hit out, each primary hit's normal (the cull test) and
+        # each traced shadow ray's hit_pos.
+        shadow_ms=cuda_ms(lambda: tracer.trace_shadow(words, res_k, warp_table=table,
+                                                      image_width=W), TIMED),
+        shadow_plain_ms=sh_plain_s * 1e3, shadow_trips=sh_trips, shadow_rows=sh_rows,
+        shadow_bound_ms=bound(sh_rows * 32 + n * 2 + (prim_hits + sh_active) * 12)["bound_ms"],
     )
     sample = np.sort(np.random.default_rng(0).choice(n, ORACLE_RAYS, replace=False))
     res_0 = tracer.to_numpy(tracer.trace(words, origins, flat))
@@ -248,16 +338,21 @@ def run(dev: torch.device) -> int:
     hp_o = float(np.abs(res_0["hit_pos"][sample] - res_o["hit_pos"])[agree_o].max())
     check(frac_o < 0.005, f"trace kernel disagrees with the oracle on {frac_o:.4%}")
     check(hp_o <= 1e-5, f"trace hit_pos differs from the oracle by {hp_o}")
+    r = report["trace"]
     phase("6 K1", f"kernel vs plain (combined L{LEVELS}): {int((~agree).sum())} of "
           f"{n} rays disagree ({frac:.6f}), hit_pos max {hp_err:.3g}; kernel "
           f"(no table) vs oracle: {int((~agree_o).sum())} of {ORACLE_RAYS} "
-          f"({frac_o:.6f}), hit_pos max {hp_o:.3g}; hits {int(a_k['hit'].sum())}; "
-          f"kernel {report['trace']['ms']:.3f} ms, plain {plain_s * 1e3:.1f} ms")
+          f"({frac_o:.6f}), hit_pos max {hp_o:.3g}; tiled stride-0 call equal to the "
+          f"flat contiguous call; shadow mode equal to shadow_rays + trace_plain on "
+          f"{n} rays culled and not ({int(sh_k.sum())} / {int(sh_all.sum())} shadowed); "
+          f"hits {int(a_k['hit'].sum())}; primary {r['ms']:.4f} ms (flat order "
+          f"{r['linear_ms']:.4f}), {trips} trips over {rows} rows, bound {r['bound_ms']:.4f} "
+          f"ms; shadow {r['shadow_ms']:.4f} ms, {sh_active} of {prim_hits} hits traced, "
+          f"{sh_trips} trips over {sh_rows} rows, bound {r['shadow_bound_ms']:.4f} ms; "
+          f"plain {plain_s * 1e3:.1f} / {sh_plain_s * 1e3:.1f} ms")
 
     # 7. K4 against its plain version on the frame's own inputs.
-    sh_o, sh_d, sh_a = tracer.shadow_rays(res_k)
-    shadow_hit = tracer.trace(words, sh_o, sh_d, active_init=sh_a,
-                              warp_table=table).hit
+    shadow_hit = sh_k
     img_k = tracer.shade(res_k, shadow_hit)
     img_p = tracer.shade_plain(res_k, shadow_hit)
     img_err = float((img_k - img_p).abs().max())
@@ -303,13 +398,13 @@ def run(dev: torch.device) -> int:
     ms_sh = cuda_ms(lambda: frame(True), TIMED, WARMUP)
     ms_pr = cuda_ms(lambda: frame(False), TIMED, WARMUP)
     power = nvidia_smi("clocks.sm,power.draw,power.limit")
+    by_kernel, busy = profile_frames(lambda: frame(True), PROFILED)
 
     # The same frame through the plain versions on the card, once.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res_p = tracer.trace_plain(words, origins, flat, warp_table=table)
-    sh_o, sh_d, sh_a = tracer.shadow_rays(res_p)
-    sh_p = tracer.trace_plain(words, sh_o, sh_d, active_init=sh_a, warp_table=table)
+    res_p = tracer.trace_plain(words, origins_c, flat, warp_table=table)
+    sh_p = tracer.trace_plain(words, *tracer.shadow_rays(res_p), warp_table=table)
     img_p = tracer.encode_u8_plain(tracer.shade_plain(res_p, sh_p.hit))
     torch.cuda.synchronize()
     plain_frame_ms = (time.perf_counter() - t0) * 1e3
@@ -321,8 +416,12 @@ def run(dev: torch.device) -> int:
           f"{n / ms_pr / 1e3:.2f} Mrays/s; hits {hits}; launches {launches}; "
           f"plain frame {plain_frame_ms:.1f} ms; pixels equal to plain "
           f"{px_equal:.6f}; clocks.sm,power.draw,power.limit {power}")
+    profile = "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in by_kernel[:8])
+    phase("8 profile", f"torch.profiler over {PROFILED} shadowed frames, device ms a "
+          f"frame by kernel: {profile}; device busy {busy:.3f} of the window from "
+          f"the first kernel's start to the last one's end")
 
-    session_phases(dev, report, words, origins, flat, table, res_k, card)
+    session_phases(dev, report, words, origins, dirs, table, res_k, card)
     gen_phases(dev, report, card)
     probe_phase(dev, report)
 
@@ -333,7 +432,7 @@ def run(dev: torch.device) -> int:
     return 0
 
 
-def session_phases(dev, report, words, origins, flat, table, res_k, card) -> None:
+def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> None:
     """Phases 9-12: visit marking, candidate selection and the visit closure
     against their plain versions, then the Session on the card."""
     from octree_tracer_tpu_torch import kernels, scenes, state
@@ -344,12 +443,15 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
     n_words = words.shape[0]
 
     # 9. K1 with visits (counts and flags) against trace_plain, on the
-    #    deep10 1080p primaries with the combined table; K4's show_hits view.
+    #    deep10 1080p primaries with the combined table, called as the frame
+    #    calls it; the shadow mode's counts on all hits (a counted frame's
+    #    shadow pass); K4's show_hits view.
+    flat = dirs.reshape(-1, 3)
     marks = {}
     for mode, flags in (("counts", False), ("flags", True)):
         v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
         v_p = torch.zeros_like(v_k)
-        r_k = tracer.trace(words, origins, flat, warp_table=table, visits=v_k,
+        r_k = tracer.trace(words, origins, dirs, warp_table=table, visits=v_k,
                            visit_flags=flags)
         r_p = tracer.trace_plain(words, origins, flat, warp_table=table, visits=v_p,
                                  visit_flags=flags)
@@ -359,23 +461,34 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
         marks[mode] = v_k
     counts, flags = marks["counts"], marks["flags"]
     check(torch.equal(flags, (counts > 0).int()), "flags are not counts > 0")
+    sh_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    sh_p = torch.zeros_like(sh_k)
+    tracer.trace_shadow(words, res_k, cull=False, warp_table=table, visits=sh_k,
+                        image_width=W)
+    tracer.trace_plain(words, *tracer.shadow_rays(res_k, cull=False), warp_table=table,
+                       visits=sh_p)
+    check(torch.equal(sh_k, sh_p), f"trace_shadow counts differ from plain on "
+          f"{int((sh_k != sh_p).sum())} slots")
     buf = torch.zeros(n_words, dtype=torch.int32, device=dev)
-    t_plain = cuda_ms(lambda: tracer.trace(words, origins, flat, warp_table=table), TIMED)
-    t_counts = cuda_ms(lambda: tracer.trace(words, origins, flat, warp_table=table,
+    t_plain = cuda_ms(lambda: tracer.trace(words, origins, dirs, warp_table=table), TIMED)
+    t_counts = cuda_ms(lambda: tracer.trace(words, origins, dirs, warp_table=table,
                                             visits=buf), TIMED)
-    t_flags = cuda_ms(lambda: tracer.trace(words, origins, flat, warp_table=table,
+    t_flags = cuda_ms(lambda: tracer.trace(words, origins, dirs, warp_table=table,
                                            visits=buf, visit_flags=True), TIMED)
+    t_sh_counts = cuda_ms(lambda: tracer.trace_shadow(
+        words, res_k, cull=False, warp_table=table, visits=buf, image_width=W), TIMED)
     report["trace"].update(visits_exact=True, unmarked_ms=t_plain, counts_ms=t_counts,
-                           flags_ms=t_flags)
+                           flags_ms=t_flags, shadow_counts_ms=t_sh_counts)
     img_k = tracer.shade(res_k, hits_visits=counts)
     img_p = tracer.shade_plain(res_k, hits_visits=counts)
     hits_err = float((img_k - img_p).abs().max())
     check(hits_err <= 1e-6, f"show_hits view differs from plain by {hits_err}")
     report["shade_encode"].update(show_hits_err=hits_err)
     phase("9 K1 visits", f"counts and flags equal to plain on {n_words} slots "
-          f"({int((counts > 0).sum())} marked, {int(counts.sum())} marks); K1 "
-          f"unmarked {t_plain:.3f} ms, counts {t_counts:.3f} ms, flags "
-          f"{t_flags:.3f} ms; K4 show_hits f32 max |kernel - plain| {hits_err:.3g}")
+          f"({int((counts > 0).sum())} marked, {int(counts.sum())} marks), shadow-mode "
+          f"counts equal ({int(sh_k.sum())} marks); K1 unmarked {t_plain:.4f} ms, counts "
+          f"{t_counts:.4f} ms, flags {t_flags:.4f} ms, shadow counts {t_sh_counts:.4f} ms; "
+          f"K4 show_hits f32 max |kernel - plain| {hits_err:.3g}")
 
     # 10. K5 and K6 against their plain versions on phase 9's visits.
     for sub_cap, unsub_cap, offset in ((65536, 65536, 123457), (1024, 1024, 777)):
@@ -402,8 +515,9 @@ def session_phases(dev, report, words, origins, flat, table, res_k, card) -> Non
     ms_k = cuda_ms(lambda: feedback.propagate_visits(words, flags, passes), 10)
     ms_p = cuda_ms(lambda: feedback.propagate_visits_plain(words, flags, passes), 3)
     report["propagate_visits"].update(max_abs_err=float(err), ms=ms_k, plain_ms=ms_p,
-                                      library_ms=None,
-                                      **bound(n_words * 12))  # words, visits in; visits out
+                                      library_ms=None, passes=passes,
+                                      # Each pass: words, visits in; visits out.
+                                      **bound(passes * n_words * 12))
     phase("10 K6", f"{passes} passes equal to plain; {int((closed_k != flags).sum())} "
           f"interiors closed; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms (all passes)")
 
@@ -672,7 +786,8 @@ def probe_phase(dev, report) -> None:
     from octree_tracer_tpu_torch.probes import gather, gather_probe
 
     kernels.reset_launches()
-    results = gather_probe.main(device=dev, log=lambda m: phase("16 probes", m))
+    results = gather_probe.main(device=dev, log=lambda m: phase("16 probes", m),
+                                retimed=RETIMED, samples=RETIME_SAMPLES)
     torch.cuda.synchronize()
     launches = {k: kernels.LAUNCHES[k] for k in ("gather_rows", "add_scalar")}
     check(all(v > 0 for v in launches.values()), f"a probe kernel never ran: {launches}")
@@ -690,6 +805,19 @@ def probe_phase(dev, report) -> None:
         check(torch.equal(gather.gather_rows(t, st, 5), gather.gather_rows_plain(t, st.tensor, 5)),
               f"gather_rows differs from plain on a [4000, {t.shape[1]}] table")
     phase("16 probes", "K8 equal to plain on a width-3 table and a misaligned width-4 view")
+    for r in results:
+        if "retimed" in r:
+            t = r["retimed"]
+            k_lo, k_hi = t["ms_range"]
+            l_lo, l_hi = t["library_ms_range"]
+            loss = t["ms_median"] - t["library_ms_median"]
+            spread = max(k_hi - k_lo, l_hi - l_lo)
+            phase("16 retimed", f"{r['name']}: {r['kernel']} median {t['ms_median'] * 1e3:.3f} "
+                  f"us [{k_lo * 1e3:.3f}, {k_hi * 1e3:.3f}], {r['library']} median "
+                  f"{t['library_ms_median'] * 1e3:.3f} us [{l_lo * 1e3:.3f}, {l_hi * 1e3:.3f}] "
+                  f"over {t['samples']} samples each, in turn; kernel - library "
+                  f"{loss * 1e3:+.3f} us, spread {spread * 1e3:.3f} us: "
+                  f"{'a loss beyond the spread' if loss > spread else 'within the spread'}")
     for kernel, line in (("gather_rows", "A per-row DMA K=8"), ("add_scalar", "t3")):
         r = next(r for r in results if r["name"] == line)
         report[kernel].update(

@@ -24,7 +24,10 @@ inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kBlock - 1) / kBlock);
 }
 
-// 2^e as a float, exact for the depths a pool can hold: 1/exp2(d) in JAX.
-__device__ __forceinline__ float pow2(int e) { return ldexpf(1.0f, e); }
+// 2^e as a float built from its exponent bits, exact for -126 <= e <= 127
+// (1/exp2(d) in JAX); the same bits as the plain versions' `_pow2`.
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float(static_cast<int>(static_cast<unsigned>(e + 127) << 23));
+}
 
 }  // namespace ot

@@ -14,39 +14,70 @@
 // the pool (the child word of the 32-byte group row), and every boundary step
 // with a table one more from the table. On the deep10 scene the pool and the
 // level-7 combined table fit in the H100's L2 together, so the kernel waits on
-// L2 latency of dependent loads, not on DRAM bandwidth. The simple design:
-// one thread per ray, the whole state in registers, no shared memory; warps
-// diverge as their rays finish. Warp-coherent beams, persistent threads and
-// L2 residency control are later work.
+// L2 latency of dependent loads, and on warps whose rays need far more trips
+// than their neighbours'. The design, one thread per ray with the whole state
+// in registers and no shared memory:
+// - Coherent warps. For an image (width > 0) a warp traces a tile of 8x4
+//   neighbouring pixels, whose rays cross the same nodes and finish together
+//   more often than a 32x1 strip's; any other batch is taken in linear order.
+//   Results are written at each ray's own index.
+// - One warp a tile, in a grid of all tiles. Persistent warps that take
+//   tiles from a counter (Aila and Laine, HPG 2009) measured about 5% slower on
+//   the deep10 frame's primary pass (PERF.md): the block scheduler already
+//   refills an SM as its blocks end, and rays here end within 100 steps.
+// - A shadow mode of the same kernel builds each shadow ray from the primary
+//   result in its prologue (origin hit_pos + normal * 2.5e-6, direction
+//   -normalize(sun), active on hits facing the sun under `cull`) and writes
+//   only `hit`: 1 byte a ray instead of the primary's 42.
+// - The primary pass may pass one origin for every ray (stride 0).
+// - int32 index arithmetic; powers of two are built from exponent bits and
+//   applied by multiplication, which is exact.
 //
 // Rounding: every expression keeps tracer.py's association term by term,
 // including the skip-plane association of tracer.py:554-561
 // (clo + cw - B*cw), which can differ by an ulp from the plain march's.
+// Every division by a ray direction stays a true IEEE division (a reciprocal
+// multiply moves knife-edge rays), and the build keeps --fmad=false.
 //
 // Visits (`_visit_mark`, tracer.py:355-369, marked at :524-526): every trip
-// marks the slot it reads in an int32[pool] array, as an atomicAdd count or
-// as a stored 1 (flags; every writer stores the same value, so the race is
-// benign). Counting is a template parameter, so frames that do not count
-// keep the unmarked kernel's registers. Each ray's first descent marks the
-// root group, so in count mode about a million atomics of a 1080p frame
-// land on the same 8 addresses; warp-aggregated atomics are later work.
+// marks the slot it reads in an int32[pool] array, as a count or as a stored
+// 1 (flags; every writer stores the same value, so the race is benign).
+// Counts are warp-aggregated: the lanes marking one slot in the same trip
+// find each other with __match_any_sync and one of them adds their number,
+// so the first descents of a tile, which share the root group, take one
+// atomic instead of 32. Counting is a template parameter, so frames that do
+// not count keep the unmarked kernel's registers.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int kTileW = 8, kTileH = 4;  // one warp's image tile
+constexpr int kWarps = ot::kBlock / 32;
+
 struct TraceArgs {
   const uint32_t* words;
-  int64_t n_words;
-  const float* origins;       // [n, 3]
-  const float* dirs;          // [n, 3]
-  const uint8_t* active_init; // [n] or null
-  int64_t n;
+  int32_t n_words;            // node indices are < 2^27 + 8, so int32 holds it
+  const float* origins;       // [n, 3], or one point when origin_stride == 0
+  int32_t origin_stride;      // 3, or 0
+  const float* dirs;          // [n, 3] (primary)
+  const uint8_t* active_init; // [n] or null (primary)
+  const uint8_t* prim_hit;    // [n] (shadow)
+  const float* prim_pos;      // [n, 3] (shadow)
+  const float* prim_normal;   // [n, 3] (shadow)
+  float sun[3];               // -normalize(sun) (shadow)
+  bool cull;                  // (shadow)
+  int32_t n;
+  int32_t width;              // image width, 0 for linear order
+  int32_t tiles_x;            // tiles across the image
+  int32_t n_tiles;
   const uint32_t* table;      // [8^L] warp words or [2*8^L] (warp, skip) pairs
   int levels;
   int max_steps;
   int max_iters;
   uint8_t* hit;
-  uint8_t* forced;
+  uint8_t* forced;            // outputs below: primary only
   int32_t* index;
   float* hit_pos;             // [n, 3]
   float* normal;              // [n, 3]
@@ -64,9 +95,9 @@ struct Resume {
   uint32_t skip;
 };
 
-__device__ __forceinline__ int cell_of(float p, int side) {
-  const float c = floorf((p + 1.0f) * (static_cast<float>(side) * 0.5f));
-  return static_cast<int>(fminf(fmaxf(c, 0.0f), static_cast<float>(side - 1)));
+// floor((p + 1) * side/2) clamped into the grid, as a float.
+__device__ __forceinline__ float cell_f(float p, float half_side, float last) {
+  return fminf(fmaxf(floorf((p + 1.0f) * half_side), 0.0f), last);
 }
 
 // tracer.py:2916 `_warp_lookup`: the resume state of the table cell holding
@@ -74,24 +105,22 @@ __device__ __forceinline__ int cell_of(float p, int side) {
 // boundary rule ((lo, hi] for strict '>', [lo, hi) for '>=').
 template <bool STRICT, bool COMBINED>
 __device__ __forceinline__ Resume warp_lookup(const uint32_t* __restrict__ table,
-                                              int levels, const float p[3]) {
-  const int side = 1 << levels;
+                                              int levels, float half_side,
+                                              float last, const float p[3]) {
   int cell[3];
-  for (int k = 0; k < 3; ++k) cell[k] = cell_of(p[k], side);
-  const int64_t flat =
-      (static_cast<int64_t>(cell[0]) * side + cell[1]) * side + cell[2];
-  const int64_t lane = COMBINED ? 2 * flat : flat;
-  const uint32_t packed = table[lane];
+  for (int k = 0; k < 3; ++k) cell[k] = static_cast<int>(cell_f(p[k], half_side, last));
+  const int32_t flat = (((cell[0] << levels) + cell[1]) << levels) + cell[2];
+  const int32_t lane = COMBINED ? 2 * flat : flat;
+  const uint32_t packed = __ldg(table + lane);
   const int32_t w_index = static_cast<int32_t>(packed >> 5);
   const int32_t w_depth = static_cast<int32_t>(packed & 31u);
   const int shift = max(levels - w_depth, 0);
-  const float scale = ot::pow2(w_depth);
-  const float half = 1.0f / scale;
+  const float half = ot::pow2(-w_depth);  // 1 / scale, exact
   Resume r;
   bool in_cell = true;
   for (int k = 0; k < 3; ++k) {
     const float anc = static_cast<float>(cell[k] >> shift);
-    r.c[k] = (anc * 2.0f + 1.0f) / scale - 1.0f;
+    r.c[k] = (anc * 2.0f + 1.0f) * half - 1.0f;  // / scale, exact
     in_cell = in_cell && (STRICT ? (p[k] > r.c[k] - half && p[k] <= r.c[k] + half)
                                  : (p[k] >= r.c[k] - half && p[k] < r.c[k] + half));
   }
@@ -99,7 +128,7 @@ __device__ __forceinline__ Resume warp_lookup(const uint32_t* __restrict__ table
   r.index = r.valid ? w_index : 0;
   r.depth = r.valid ? w_depth : 0;
   for (int k = 0; k < 3; ++k) r.c[k] = r.valid ? r.c[k] : 0.0f;
-  r.skip = COMBINED ? table[lane + 1] : 0u;
+  r.skip = COMBINED ? __ldg(table + lane + 1) : 0u;
   return r;
 }
 
@@ -110,13 +139,45 @@ __device__ __forceinline__ int32_t decode_skip(uint32_t skip_word, int oct) {
   return nib <= 12 ? nib : (nib - 11) * 8;
 }
 
+// The ray a lane takes in a tile, or -1 past the batch's (or image's) edge.
+__device__ __forceinline__ int32_t ray_of(const TraceArgs& a, int32_t tile, int lane) {
+  if (a.width == 0) {
+    const int32_t i = tile * 32 + lane;
+    return i < a.n ? i : -1;
+  }
+  const int32_t ty = tile / a.tiles_x;
+  const int32_t x = (tile - ty * a.tiles_x) * kTileW + (lane % kTileW);
+  const int32_t i = (ty * kTileH + lane / kTileW) * a.width + x;
+  return (x < a.width && i < a.n) ? i : -1;
+}
+
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
-// VISITS: 0 = none, 1 = counts, 2 = 0/1 flags.
-template <bool STRICT, int TABLE, int VISITS>
-__global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
+// VISITS: 0 = none, 1 = counts, 2 = 0/1 flags. SHADOW: the shadow mode.
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+__device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
   constexpr bool kCombined = TABLE == 2;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+  float o[3], d[3];
+  if (SHADOW) {
+    // shadow_rays: from hit_pos + normal * 2.5e-6 toward -normalize(sun).
+    bool on = a.prim_hit[i] != 0;
+    float nrm[3];
+    for (int k = 0; k < 3; ++k) nrm[k] = on ? a.prim_normal[3 * i + k] : 0.0f;
+    if (a.cull) on = on && (nrm[0] * a.sun[0] + nrm[1] * a.sun[1]) + nrm[2] * a.sun[2] > 0.0f;
+    if (!on) {
+      a.hit[i] = 0;
+      return;
+    }
+    for (int k = 0; k < 3; ++k) {
+      o[k] = a.prim_pos[3 * i + k] + nrm[k] * 2.5e-6f;
+      d[k] = a.sun[k];
+    }
+  } else {
+    const int32_t o_off = i * a.origin_stride;
+    for (int k = 0; k < 3; ++k) {
+      o[k] = a.origins[o_off + k];
+      d[k] = a.dirs[3 * i + k];
+    }
+  }
 
   // What a ray that never resolves reports (not entered, masked off, or still
   // active after max_iters trips).
@@ -125,12 +186,10 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   uint32_t out_word = 0;
   float hp[3] = {0.0f, 0.0f, 0.0f}, hn[3] = {0.0f, 0.0f, 0.0f};
 
-  float o[3], d[3], mn[3], mx[3];
+  float mn[3], mx[3];
   bool inside = true;
   for (int k = 0; k < 3; ++k) {
-    o[k] = a.origins[3 * i + k];
-    const float dk = a.dirs[3 * i + k];
-    d[k] = dk == 0.0f ? 1e-6f : dk;
+    d[k] = d[k] == 0.0f ? 1e-6f : d[k];
     inside = inside && o[k] >= -1.0f && o[k] < 1.0f;
     const float t1 = (-1.0f - o[k]) / d[k];
     const float t2 = (1.0f - o[k]) / d[k];
@@ -141,9 +200,15 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   const float v8 = fminf(fminf(mx[0], mx[1]), mx[2]);
   const float dist = (v8 < 0.0f || v7 > v8) ? 0.0f : v7;
   bool active = inside || dist != 0.0f;
-  if (a.active_init != nullptr) active = active && a.active_init[i] != 0;
+  if (!SHADOW && a.active_init != nullptr) active = active && a.active_init[i] != 0;
 
   if (active) {
+    // Per-ray invariants of the loop.
+    const float half_side = static_cast<float>(1 << a.levels) * 0.5f;
+    const float last = static_cast<float>((1 << a.levels) - 1);
+    const float cw = 2.0f / static_cast<float>(1 << a.levels);
+    const uint32_t* __restrict__ words = a.words;
+    const int32_t n_words = a.n_words;
     // p: the entry position, which is also the origin of every boundary step.
     float p[3], v[3], nrm[3], rs[3], cp[3] = {0.0f, 0.0f, 0.0f};
     for (int k = 0; k < 3; ++k) {
@@ -155,7 +220,7 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
     const int oct = (d[0] > 0.0f) * 4 + (d[1] > 0.0f) * 2 + (d[2] > 0.0f);
     int32_t node = 0, depth = 0, steps = 0, skw = 0;
     if (TABLE != 0) {
-      const Resume w = warp_lookup<STRICT, kCombined>(a.table, a.levels, p);
+      const Resume w = warp_lookup<STRICT, kCombined>(a.table, a.levels, half_side, last, p);
       node = w.index;
       depth = w.depth;
       for (int k = 0; k < 3; ++k) cp[k] = w.c[k];
@@ -171,15 +236,16 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
       float np[3];
       for (int k = 0; k < 3; ++k) np[k] = cp[k] + (pb[k] ? inv1 : -inv1);
       const int32_t idx = node + child;
-      if (VISITS != 0 && idx < a.n_words) {  // out-of-pool marks drop, as JAX's
+      if (VISITS != 0 && idx < n_words) {  // out-of-pool marks drop, as JAX's
         if (VISITS == 1) {
-          atomicAdd(a.visits + idx, 1);
+          const unsigned peers = __match_any_sync(__activemask(), idx);
+          if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(a.visits + idx, __popc(peers));
         } else {
           a.visits[idx] = 1;
         }
       }
       // A malformed pool reads its last word, as JAX's clamped gather does.
-      const uint32_t word = a.words[idx < a.n_words ? idx : a.n_words - 1];
+      const uint32_t word = __ldg(words + (idx < n_words ? idx : n_words - 1));
       const uint32_t payload = word >> 4;
 
       if (payload < ot::kVoxelOffset) {  // interior: descend
@@ -205,15 +271,10 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
       float t[3];
       for (int k = 0; k < 3; ++k) t[k] = ((np[k] - p[k]) + rs[k] * inv1) / d[k];
       if (kCombined && skw > 0) {
-        const int side = 1 << a.levels;
-        const float cw = 2.0f / static_cast<float>(side);
         const float skb = static_cast<float>(skw);
         float st[3];
         for (int k = 0; k < 3; ++k) {
-          const float ci = fminf(
-              fmaxf(floorf((v[k] + 1.0f) * (static_cast<float>(side) * 0.5f)), 0.0f),
-              static_cast<float>(side - 1));
-          const float clo = ci * cw - 1.0f;
+          const float clo = cell_f(v[k], half_side, last) * cw - 1.0f;
           const float plane = rs[k] > 0.0f ? clo + skb * cw : (clo + cw) - skb * cw;
           st[k] = (plane - p[k]) / d[k];
         }
@@ -267,7 +328,7 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
       Resume w;
       w.valid = false;
       if (TABLE != 0) {
-        w = warp_lookup<STRICT, kCombined>(a.table, a.levels, nv);
+        w = warp_lookup<STRICT, kCombined>(a.table, a.levels, half_side, last, nv);
         if (kCombined) skw = decode_skip(w.skip, oct);
       }
       if (in_parent) continue;
@@ -278,6 +339,7 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   }
 
   a.hit[i] = hit;
+  if (SHADOW) return;
   a.forced[i] = forced;
   a.index[i] = index;
   a.steps[i] = out_steps;
@@ -289,62 +351,136 @@ __global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
   }
 }
 
-template <bool STRICT, int VISITS>
-void launch_visits(const TraceArgs& a, int table_mode, cudaStream_t s) {
-  const unsigned grid = ot::blocks_for(a.n);
+// One warp a tile, in a grid of all tiles.
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+__global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (tile >= a.n_tiles) return;
+  const int32_t i = ray_of(a, tile, lane);
+  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW>(a, i);
+}
+
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+void launch_kernel(const TraceArgs& a, cudaStream_t s) {
+  trace_kernel<STRICT, TABLE, VISITS, SHADOW>
+      <<<(a.n_tiles + kWarps - 1) / kWarps, ot::kBlock, 0, s>>>(a);
+}
+
+template <bool STRICT, int VISITS, bool SHADOW>
+void launch_table(const TraceArgs& a, int table_mode, cudaStream_t s) {
   switch (table_mode) {
-    case 0: trace_kernel<STRICT, 0, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
-    case 1: trace_kernel<STRICT, 1, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
-    default: trace_kernel<STRICT, 2, VISITS><<<grid, ot::kBlock, 0, s>>>(a); break;
+    case 0: launch_kernel<STRICT, 0, VISITS, SHADOW>(a, s); break;
+    case 1: launch_kernel<STRICT, 1, VISITS, SHADOW>(a, s); break;
+    default: launch_kernel<STRICT, 2, VISITS, SHADOW>(a, s); break;
   }
 }
 
-template <bool STRICT>
-void launch_strict(const TraceArgs& a, int table_mode, int visit_mode, cudaStream_t s) {
-  switch (visit_mode) {
-    case 0: launch_visits<STRICT, 0>(a, table_mode, s); break;
-    case 1: launch_visits<STRICT, 1>(a, table_mode, s); break;
-    default: launch_visits<STRICT, 2>(a, table_mode, s); break;
+// The shadow mode takes visit modes 0 and 1 only.
+template <bool SHADOW>
+void launch(const TraceArgs& a, int strict, int table_mode, int visit_mode,
+            cudaStream_t s) {
+  switch (visit_mode * 2 + (strict != 0)) {
+    case 0: launch_table<false, 0, SHADOW>(a, table_mode, s); break;
+    case 1: launch_table<true, 0, SHADOW>(a, table_mode, s); break;
+    case 2: launch_table<false, 1, SHADOW>(a, table_mode, s); break;
+    case 3: launch_table<true, 1, SHADOW>(a, table_mode, s); break;
+    case 4: launch_table<false, 2, false>(a, table_mode, s); break;
+    default: launch_table<true, 2, false>(a, table_mode, s); break;
   }
+}
+
+// The batch's tiles: 8x4 pixel tiles of an image of `width` columns, or
+// 32-ray runs in linear order when width is 0.
+void set_tiles(TraceArgs& a) {
+  if (a.width > 0) {
+    a.tiles_x = (a.width + kTileW - 1) / kTileW;
+    a.n_tiles = a.tiles_x * ((a.n / a.width + kTileH - 1) / kTileH);
+  } else {
+    a.tiles_x = 0;
+    a.n_tiles = (a.n + 31) / 32;
+  }
+}
+
+int32_t clamp_words(int64_t n_words) {
+  return static_cast<int32_t>(n_words < INT_MAX ? n_words : INT_MAX);
 }
 
 }  // namespace
 
-// table_mode: 0 = no table, 1 = warp table, 2 = combined warp+skip table.
-// visit_mode: 0 = no visits (visits null), 1 = counts, 2 = 0/1 flags into
-// visits int32[n_words]. Returns cudaGetLastError() after the launch.
+// Primary pass. origins f32[n, 3] (origin_stride 3) or one f32[3] point
+// (origin_stride 0); width > 0 traces the batch as an image of that many
+// columns in 8x4 tiles (n a multiple of width); table_mode: 0 = no table,
+// 1 = warp table, 2 = combined warp+skip table; visit_mode: 0 = no visits
+// (visits null), 1 = counts, 2 = 0/1 flags into visits int32[n_words];
+// n < 2^31 / 3. Returns cudaGetLastError() after the launch.
 extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
-                        const void* dirs,
-                        const void* active_init, int64_t n, const void* table,
-                        int table_mode, int levels, int strict, int max_steps,
-                        int max_iters, void* hit, void* forced, void* index,
-                        void* hit_pos, void* normal, void* steps, void* depth,
-                        void* word, void* visits, int visit_mode, void* stream) {
+                        int origin_stride, const void* dirs, const void* active_init,
+                        int64_t n, int width, const void* table, int table_mode,
+                        int levels, int strict, int max_steps, int max_iters, void* hit,
+                        void* forced, void* index, void* hit_pos, void* normal,
+                        void* steps, void* depth, void* word, void* visits,
+                        int visit_mode, void* stream) {
   if (n == 0) return 0;
-  const TraceArgs a{static_cast<const uint32_t*>(words),
-                    n_words,
-                    static_cast<const float*>(origins),
-                    static_cast<const float*>(dirs),
-                    static_cast<const uint8_t*>(active_init),
-                    n,
-                    static_cast<const uint32_t*>(table),
-                    levels,
-                    max_steps,
-                    max_iters,
-                    static_cast<uint8_t*>(hit),
-                    static_cast<uint8_t*>(forced),
-                    static_cast<int32_t*>(index),
-                    static_cast<float*>(hit_pos),
-                    static_cast<float*>(normal),
-                    static_cast<int32_t*>(steps),
-                    static_cast<int32_t*>(depth),
-                    static_cast<uint32_t*>(word),
-                    static_cast<int32_t*>(visits)};
+  TraceArgs a{};
+  a.words = static_cast<const uint32_t*>(words);
+  a.n_words = clamp_words(n_words);
+  a.origins = static_cast<const float*>(origins);
+  a.origin_stride = origin_stride;
+  a.dirs = static_cast<const float*>(dirs);
+  a.active_init = static_cast<const uint8_t*>(active_init);
+  a.n = static_cast<int32_t>(n);
+  a.width = width;
+  a.table = static_cast<const uint32_t*>(table);
+  a.levels = levels;
+  a.max_steps = max_steps;
+  a.max_iters = max_iters;
+  a.hit = static_cast<uint8_t*>(hit);
+  a.forced = static_cast<uint8_t*>(forced);
+  a.index = static_cast<int32_t*>(index);
+  a.hit_pos = static_cast<float*>(hit_pos);
+  a.normal = static_cast<float*>(normal);
+  a.steps = static_cast<int32_t*>(steps);
+  a.depth = static_cast<int32_t*>(depth);
+  a.word = static_cast<uint32_t*>(word);
+  a.visits = static_cast<int32_t*>(visits);
+  set_tiles(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (strict) {
-    launch_strict<true>(a, table_mode, visit_mode, s);
-  } else {
-    launch_strict<false>(a, table_mode, visit_mode, s);
-  }
+  launch<false>(a, strict, table_mode, visit_mode, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shadow pass over a primary result (prim_hit u8[n], prim_pos and
+// prim_normal f32[n, 3]) toward neg_sun = -normalize(sun): writes only
+// hit_out u8[n]; `cull` skips hits whose normal faces away from the sun;
+// visits (int32[n_words] or null) gets counts. Other arguments as ot_trace.
+extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* prim_hit,
+                               const void* prim_pos, const void* prim_normal, float sx,
+                               float sy, float sz, int cull, int64_t n, int width,
+                               const void* table, int table_mode, int levels, int strict,
+                               int max_steps, int max_iters, void* hit_out, void* visits,
+                               void* stream) {
+  if (n == 0) return 0;
+  TraceArgs a{};
+  a.words = static_cast<const uint32_t*>(words);
+  a.n_words = clamp_words(n_words);
+  a.prim_hit = static_cast<const uint8_t*>(prim_hit);
+  a.prim_pos = static_cast<const float*>(prim_pos);
+  a.prim_normal = static_cast<const float*>(prim_normal);
+  a.sun[0] = sx;
+  a.sun[1] = sy;
+  a.sun[2] = sz;
+  a.cull = cull != 0;
+  a.n = static_cast<int32_t>(n);
+  a.width = width;
+  a.table = static_cast<const uint32_t*>(table);
+  a.levels = levels;
+  a.max_steps = max_steps;
+  a.max_iters = max_iters;
+  a.hit = static_cast<uint8_t*>(hit_out);
+  a.visits = static_cast<int32_t*>(visits);
+  set_tiles(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  launch<true>(a, strict, table_mode, visits != nullptr ? 1 : 0, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -43,8 +44,10 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U32 = ctypes.c_uint32
 # argtypes of each C entry point; the last argument is always the stream.
 _SIGNATURES = {
-    "ot_trace": [_P, _I64, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I] + [_P] * 9
-                + [_I, _P],
+    "ot_trace": [_P, _I64, _P, _I, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I]
+                + [_P] * 9 + [_I, _P],
+    "ot_trace_shadow": [_P, _I64, _P, _P, _P, _F, _F, _F, _I, _I64, _I, _P, _I, _I, _I,
+                        _I, _I] + [_P] * 3,
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
     "ot_raygen": [_P, _I, _I, _P, _P, _P],
     "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 5,
@@ -130,6 +133,21 @@ def build() -> tuple[str, str]:
     return path, log
 
 
+def register_report(log: str) -> list[tuple[str, int, int, int]]:
+    """(entry function, registers, spill store bytes, spill load bytes) of
+    each kernel in ptxas's ``-v`` report (the log :func:`build` returns)."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+    return out
+
+
 def library() -> ctypes.CDLL:
     """The loaded library, built first if needed."""
     global _lib
@@ -185,9 +203,11 @@ def uses_kernel(device: torch.device) -> bool:
 
 
 def check(t, name: str, dtype: torch.dtype, shape: tuple | None = None,
-          device: torch.device | None = None) -> None:
+          device: torch.device | None = None, broadcast_rows: bool = False) -> None:
     """Raise unless ``t`` is a contiguous tensor of ``dtype`` (and ``shape``,
-    where None entries match any size, and ``device``)."""
+    where None entries match any size, and ``device``). ``broadcast_rows``
+    also takes a 2-D tensor whose rows are all one contiguous row (stride
+    ``(0, 1)``, as ``expand`` makes)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dtype != dtype:
@@ -199,5 +219,7 @@ def check(t, name: str, dtype: torch.dtype, shape: tuple | None = None,
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if broadcast_rows and t.dim() == 2 and t.stride() == (0, 1):
+        return
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

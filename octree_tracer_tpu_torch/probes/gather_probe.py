@@ -73,27 +73,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 class _Probe:
     """Runs the lines and keeps their results."""
 
-    def __init__(self, device, shrink: int, reps: int, log):
+    def __init__(self, device, shrink: int, reps: int, log, retimed=()):
         self.dev = device
         self.shrink = shrink
         self.reps = reps
         self.log = log
         self.timed = device.type == "cuda"
         self.results: list[dict] = []
+        self.retimed = set(retimed)
+        self.fns: dict[str, tuple] = {}  # retimed line -> its kernel and library calls
 
     def n(self, count: int) -> int:
         """A row or index count of the probes, reduced by ``shrink``."""
         return max(count >> self.shrink, 16)
 
-    def _times(self, kernel_fn, plain_fn, library_fn, n_calls: int = 1) -> dict:
+    def _times(self, name, kernel_fn, plain_fn, library_fn, n_calls: int = 1) -> dict:
+        if name in self.retimed:
+            self.fns[name] = (kernel_fn, library_fn, n_calls)
         if not self.timed:
             return {}
         return {"ms": cuda_ms(kernel_fn, self.reps) / n_calls,
                 "plain_ms": cuda_ms(plain_fn, self.reps) / n_calls,
                 "library_ms": cuda_ms(library_fn, self.reps) / n_calls}
 
+    def _start(self) -> None:
+        self._launched = dict(kernels.LAUNCHES)
+
     def _emit(self, name: str, res: dict, rows: int, what: str) -> dict:
-        res.update(name=name, rows=rows)
+        res.update(name=name, rows=rows, launches=kernels.LAUNCHES[res["kernel"]]
+                   - self._launched[res["kernel"]])
         if self.timed:
             ns = {k: res[k] * 1e6 / rows for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
             t = (f" kernel {ns['ms']:.3f} ns/row, {res['library']} {ns['library_ms']:.3f} "
@@ -101,7 +109,8 @@ class _Probe:
                  f"ns/row ({res['ms'] * 1e3:.2f} us a call)")
         else:
             t = " (not timed on the CPU)"
-        self.log(f"{name}: OK={res['ok']} plain={res['plain_ok']}{t}; {what}")
+        self.log(f"{name}: OK={res['ok']} plain={res['plain_ok']}{t}; {what}; "
+                 f"{res['launches']} launches")
         self.results.append(res)
         return res
 
@@ -109,6 +118,7 @@ class _Probe:
                what=""):
         """K8 over ``table_np`` (u32[G, w]) for each start set in turn;
         ``want`` is the probe's reference for the first set."""
+        self._start()
         table = u32_to_device(table_np, self.dev)
         sets = [upload_starts(s, self.dev) for s in starts_sets]
         idx = [st.tensor.to(torch.int64) if rows == 1 else
@@ -129,7 +139,7 @@ class _Probe:
         def cycle(fn):
             return lambda: [fn(i) for i in range(k)]
 
-        res.update(self._times(cycle(lambda i: gather_rows(table, sets[i], rows)),
+        res.update(self._times(name, cycle(lambda i: gather_rows(table, sets[i], rows)),
                                cycle(lambda i: gather_rows_plain(table, sets[i].tensor, rows)),
                                cycle(lambda i: table[idx[i]]), k))
         n_rows = sets[0].tensor.shape[0] * rows
@@ -143,6 +153,7 @@ class _Probe:
     def add(self, name, x_np, c, want, what):
         """K9: ``x + c``; ``c`` a number, or a NumPy one-element array that
         goes to the device (the scalar-prefetch operand)."""
+        self._start()
         x = (u32_to_device(x_np, self.dev) if x_np.dtype == np.uint32
              else torch.from_numpy(x_np).to(self.dev))
         if isinstance(c, np.ndarray):
@@ -153,7 +164,7 @@ class _Probe:
         res = {"kernel": "add_scalar", "library": "x + c", "ok": bool(np.array_equal(got, want)),
                "plain_ok": bool(plain_ok), "max_abs_err": 0.0 if plain_ok else float("inf")}
         lib_c = c.reshape(()) if isinstance(c, torch.Tensor) else c
-        res.update(self._times(lambda: add_scalar(x, c), lambda: add_scalar_plain(x, c),
+        res.update(self._times(name, lambda: add_scalar(x, c), lambda: add_scalar_plain(x, c),
                                lambda: x + lib_c))
         nbytes = 2 * x_np.nbytes
         res.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
@@ -255,20 +266,41 @@ def run(which, pr: _Probe) -> None:
             _t11(pr, name, w, g)
 
 
-def main(which=None, device="cuda", shrink: int = 0, reps: int = 20, log=print) -> list[dict]:
+def retime(pr: _Probe, name: str, samples: int) -> dict:
+    """``samples`` device times of line ``name``'s kernel and of its library
+    call, taken in turn (kernel, library, kernel, ...): their medians and
+    ranges in ms a call."""
+    kernel_fn, library_fn, n_calls = pr.fns[name]
+    k, lib = [], []
+    for _ in range(samples):
+        k.append(cuda_ms(kernel_fn, pr.reps) / n_calls)
+        lib.append(cuda_ms(library_fn, pr.reps) / n_calls)
+    return {"samples": samples, "ms_median": float(np.median(k)), "ms_range": [min(k), max(k)],
+            "library_ms_median": float(np.median(lib)), "library_ms_range": [min(lib), max(lib)]}
+
+
+def main(which=None, device="cuda", shrink: int = 0, reps: int = 20, log=print,
+         retimed=(), samples: int = 21) -> list[dict]:
     """Run the named probe lines (all of them by default) on ``device``;
-    returns one dict per line (kernel, ok, plain_ok, rows, bytes, and on the
-    card ms, plain_ms, library_ms and bound_ms per call)."""
+    returns one dict per line (kernel, ok, plain_ok, rows, bytes, the line's
+    kernel launches, and on the card ms, plain_ms, library_ms and bound_ms
+    per call). The lines named in
+    ``retimed`` are then timed again ``samples`` times, kernel and library
+    call in turn, into their dict's ``retimed`` (see :func:`retime`)."""
     dev = kernels.resolve_device(device)
     which = set(which or NAMES)
     unknown = which - set(NAMES)
     if unknown:
         raise ValueError(f"unknown probe names {sorted(unknown)}; known: {NAMES}")
-    pr = _Probe(dev, shrink, reps, log)
+    pr = _Probe(dev, shrink, reps, log, retimed)
     t0 = time.perf_counter()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     log(f"device: {name}")
     run(which, pr)
+    if pr.timed:
+        for r in pr.results:
+            if r["name"] in pr.fns:
+                r["retimed"] = retime(pr, r["name"], samples)
     log(f"total {time.perf_counter() - t0:.1f}s")
     return pr.results
 

@@ -5,7 +5,9 @@ has a wrapper and, beside it, a plain PyTorch version of the same function
 written as separate ops, term by term after the JAX expressions:
 
 - ``trace`` (K1, ``csrc/trace.cu``) / ``trace_plain``: the semantics of JAX
-  ``trace`` with ``parent_restart=True`` (``tracer.py:135``);
+  ``trace`` with ``parent_restart=True`` (``tracer.py:135``), and
+  ``trace_shadow`` (K1's shadow mode) / ``shadow_rays`` + ``trace_plain``:
+  the frame's shadow pass;
 - ``warp_occupancy`` (K2, ``csrc/warp_occupancy.cu``) /
   ``warp_occupancy_plain``: ``build_warp_table`` (``tracer.py:2859``) and
   ``skip.occupancy_from_pool`` (``skip.py:66``) from one descent;
@@ -291,26 +293,12 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
                        out_depth, narrow_u32(out_word))
 
 
-def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
-          strict_descent=True, warp_table=None, visits=None,
-          visit_flags=False) -> TraceResult:
-    """Trace ``dirs.shape[0]`` rays through the node pool ``words``.
-
-    ``origins``/``dirs`` are f32[N, 3], ``active_init`` an optional bool[N]
-    mask of rays to trace at all, ``warp_table`` an optional warp table
-    (8^L words) or combined warp+skip table (2*8^L words) of ``words``.
-    ``visits``, an optional int32 tensor of the pool's length, is marked in
-    place at every slot a ray reads: counted, or set to 1 under
-    ``visit_flags``. On a CUDA device this launches kernel K1; on the CPU it
-    is ``trace_plain``.
-    """
-    dev = dirs.device
-    n = dirs.shape[0]
+def _trace_checks(words, n, dev, warp_table, visits, visit_flags):
+    """Checks shared by K1's two wrappers; returns (table_mode, levels,
+    visit_mode)."""
     kernels.check(words, "words", _I32, (None,), dev)
-    kernels.check(origins, "origins", _F32, (n, 3), dev)
-    kernels.check(dirs, "dirs", _F32, (n, 3), dev)
-    if active_init is not None:
-        kernels.check(active_init, "active_init", torch.bool, (n,), dev)
+    if 3 * n >= 1 << 31:
+        raise ValueError(f"{n} rays: K1 indexes rays in int32, so n < 2^31 / 3")
     table_mode, levels = 0, 0
     if warp_table is not None:
         kernels.check(warp_table, "warp_table", _I32, (None,), dev)
@@ -320,6 +308,36 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     if visits is not None:
         kernels.check(visits, "visits", _I32, (words.shape[0],), dev)
         visit_mode = 2 if visit_flags else 1
+    return table_mode, levels, visit_mode
+
+
+def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
+          strict_descent=True, warp_table=None, visits=None,
+          visit_flags=False) -> TraceResult:
+    """Trace the rays ``dirs`` through the node pool ``words``.
+
+    ``dirs`` is f32[N, 3], or an image f32[H, W, 3] of N = H*W rays, which
+    the kernel takes in tiles of 8x4 neighbouring pixels; results are flat
+    [N] in pixel order either way. ``origins`` is f32[N, 3], or one point
+    for every ray as an ``expand``ed view of stride (0, 1). ``active_init``
+    an optional bool[N] mask of rays to trace at all, ``warp_table`` an
+    optional warp table (8^L words) or combined warp+skip table (2*8^L
+    words) of ``words``. ``visits``, an optional int32 tensor of the pool's
+    length, is marked in place at every slot a ray reads: counted, or set to
+    1 under ``visit_flags``. On a CUDA device this launches kernel K1; on
+    the CPU it is ``trace_plain``.
+    """
+    dev = dirs.device
+    image = dirs.dim() == 3
+    kernels.check(dirs, "dirs", _F32, (None, None, 3) if image else (None, 3), dev)
+    width = dirs.shape[1] if image else 0
+    dirs = dirs.reshape(-1, 3)
+    n = dirs.shape[0]
+    kernels.check(origins, "origins", _F32, (n, 3), dev, broadcast_rows=True)
+    if active_init is not None:
+        kernels.check(active_init, "active_init", torch.bool, (n,), dev)
+    table_mode, levels, visit_mode = _trace_checks(words, n, dev, warp_table, visits,
+                                                   visit_flags)
     if not kernels.uses_kernel(dev):
         return trace_plain(words, origins, dirs, active_init, max_steps,
                            strict_descent, warp_table, visits, visit_flags)
@@ -337,11 +355,54 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     kernels.launch(
         "trace", "ot_trace", dev,
         kernels.ptr(words), words.numel(), kernels.ptr(origins),
-        kernels.ptr(dirs), kernels.ptr(active_init), n, kernels.ptr(warp_table), table_mode,
-        levels, int(strict_descent), max_steps, (max_steps + 2) * 26,
-        *[kernels.ptr(f) for f in res], kernels.ptr(visits), visit_mode,
+        0 if origins.stride(0) == 0 else 3, kernels.ptr(dirs),
+        kernels.ptr(active_init), n, width,
+        kernels.ptr(warp_table), table_mode, levels, int(strict_descent), max_steps,
+        (max_steps + 2) * 26, *[kernels.ptr(f) for f in res], kernels.ptr(visits),
+        visit_mode,
     )
     return res
+
+
+def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
+                 warp_table=None, visits=None, max_steps=MAX_STEPS,
+                 strict_descent=True, *, image_width: int) -> torch.Tensor:
+    """bool[N]: whether each shadow ray of ``result`` (``shadow_rays``'s,
+    from ``hit_pos + normal * 2.5e-6`` toward ``-normalize(sun_dir)``, active
+    on hits, and under ``cull`` only on hits facing the sun) hits geometry.
+    ``visits`` (int32[pool]) gets the shadow rays' exact counts added.
+    ``image_width`` is the width of the image whose pixels ``result`` holds
+    in order, which the kernel takes in 8x4 tiles as ``trace`` takes an
+    image's dirs, or 0 for a batch in linear order. On a CUDA device this
+    launches kernel K1 in its shadow mode, which builds each ray from the
+    result in its prologue and writes only ``hit``; on the CPU it is
+    ``shadow_rays`` and ``trace_plain``."""
+    dev = words.device
+    n = result.hit.shape[0]
+    kernels.check(result.hit, "hit", torch.bool, (n,), dev)
+    kernels.check(result.hit_pos, "hit_pos", _F32, (n, 3), dev)
+    kernels.check(result.normal, "normal", _F32, (n, 3), dev)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        neg_sun = _neg_sun(sun_dir)
+    if neg_sun.shape != (3,) or not np.isfinite(neg_sun).all():
+        raise ValueError(f"sun_dir must be three finite numbers, not all 0: {sun_dir}")
+    if image_width < 0 or (image_width and n % image_width):
+        raise ValueError(f"image_width {image_width} does not divide {n} rays")
+    table_mode, levels, _ = _trace_checks(words, n, dev, warp_table, visits, False)
+    if not kernels.uses_kernel(dev):
+        o, d, active = shadow_rays(result, sun_dir, cull)
+        return trace_plain(words, o, d, active, max_steps, strict_descent, warp_table,
+                           visits).hit
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    kernels.launch(
+        "trace", "ot_trace_shadow", dev,
+        kernels.ptr(words), words.numel(), kernels.ptr(result.hit),
+        kernels.ptr(result.hit_pos), kernels.ptr(result.normal),
+        *(float(c) for c in neg_sun), int(cull), n, image_width, kernels.ptr(warp_table),
+        table_mode, levels, int(strict_descent), max_steps, (max_steps + 2) * 26,
+        kernels.ptr(hit), kernels.ptr(visits),
+    )
+    return hit
 
 
 def warp_occupancy_plain(words: torch.Tensor, levels: int):
@@ -533,9 +594,10 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
     ``sun_dir`` three floats on the host.
     Returns (image f32[H, W, 3] or u8[H, W, 3], TraceResult in pixel order,
-    visits int32[pool] or None). Shadow rays are ``shadow_rays``'s; the
-    shadow pass reads only their hit mask. ``misc_bool`` selects the ``>=``
-    descent and gamma 1.0.
+    visits int32[pool] or None). The primary pass traces the image in tiles
+    from one origin; the shadow pass (``trace_shadow``) builds
+    ``shadow_rays``'s rays from the primary result and yields only their hit
+    mask. ``misc_bool`` selects the ``>=`` descent and gamma 1.0.
 
     ``with_visits`` counts, per pool slot, the reads of every ray of both
     passes, as JAX ``render_frame`` (tracer.py:3377-3560) does: the primary
@@ -549,26 +611,24 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     if show_hits:
         shadows, with_visits, visit_flags = False, True, False
     h, w = dirs.shape[:2]
-    flat = dirs.reshape(-1, 3)
-    n = flat.shape[0]
+    n = h * w
     strict = not misc_bool
     gamma = 2.2 - 1.2 * misc_bool
-    origins = origin.reshape(1, 3).expand(n, 3).contiguous()
     visits = None
     if with_visits:
         visits = torch.zeros(words.shape[0], dtype=_I32, device=words.device)
-    result = trace(words, origins, flat, max_steps=max_steps,
+    origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
+    result = trace(words, origins, dirs.contiguous(), max_steps=max_steps,
                    strict_descent=strict, warp_table=warp_table, visits=visits,
                    visit_flags=visit_flags)
     if with_visits and visit_flags:
         visits = overlay_hit_counts(visits, result)
     shadow_hit = None
     if shadows and not show_steps:
-        sh_orig, sh_dirs, sh_active = shadow_rays(result, sun_dir,
-                                                  cull=not with_visits)
-        shadow_hit = trace(words, sh_orig, sh_dirs, active_init=sh_active,
-                           max_steps=max_steps, strict_descent=strict,
-                           warp_table=warp_table, visits=visits).hit
+        shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits,
+                                  warp_table=warp_table, visits=visits,
+                                  max_steps=max_steps, strict_descent=strict,
+                                  image_width=w)
     img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
                 sun_dir=sun_dir, gamma=gamma, u8=u8_image,
                 hits_visits=visits if show_hits else None)

@@ -114,3 +114,28 @@ def test_library_path_keyed_on_sources_and_flags(monkeypatch):
     assert not any("fast_math" in f for f in kernels.NVCC_FLAGS)
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "octree_tracer_tpu_torch/_build/" in f.read().split()
+
+
+def test_register_report_reads_ptxas_output():
+    log = textwrap.dedent("""\
+        ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi0ELb0EEEvNS_9TraceArgsE' for 'sm_90a'
+        ptxas info    : Function properties for _ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi0ELb0EEEvNS_9TraceArgsE
+            0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+        ptxas info    : Used 40 registers, used 0 barriers, 384 bytes cmem[0]
+        ptxas info    : Function properties for _ZN12_GLOBAL__N_116propagate_kernelEPKjPKiPil
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 12 registers, used 0 barriers
+        """)
+    assert kernels.register_report(log) == [
+        ("_ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi0ELb0EEEvNS_9TraceArgsE", 40, 4, 8),
+        ("_ZN12_GLOBAL__N_116propagate_kernelEPKjPKiPil", 12, 0, 0)]
+
+
+def test_check_takes_broadcast_rows_only_when_asked():
+    one = torch.zeros(1, 3).expand(5, 3)
+    kernels.check(one, "origins", torch.float32, (5, 3), broadcast_rows=True)
+    with pytest.raises(ValueError):
+        kernels.check(one, "origins", torch.float32, (5, 3))
+    with pytest.raises(ValueError):
+        kernels.check(torch.zeros(5, 6)[:, ::2], "origins", torch.float32, (5, 3),
+                      broadcast_rows=True)

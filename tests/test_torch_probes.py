@@ -168,3 +168,21 @@ def test_gather_probe_defaults_to_the_card(monkeypatch):
         gather_probe.main(["t1"])
     with pytest.raises(ValueError, match="unknown"):
         gather_probe.main(["p2"], device="cpu")
+
+
+def test_trace_steps_needs_the_card(monkeypatch, capsys):
+    """The cross-tree K1 timer measures only on a card: without one it
+    exits 1 before it starts a worker."""
+    from octree_tracer_tpu_torch.probes import trace_steps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert trace_steps.main(["no_such_tree"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_probe_retimes_only_on_the_card():
+    """On the CPU the probe times nothing, so it re-times nothing either."""
+    results = gather_probe.main(["t3", "t6"], device="cpu", shrink=8, log=lambda m: None,
+                                retimed=("t3", "t6"), samples=3)
+    assert [r["name"] for r in results] == ["t3", "t6"]
+    assert all(r["ok"] and r["plain_ok"] and "retimed" not in r for r in results)

@@ -104,3 +104,23 @@ def test_f32_frame_matches_jax_composition():
     assert sh.hit.numpy().any()
     diff = np.abs(img.numpy().reshape(n, 3) - img_j)
     assert diff[agree].max() <= 1e-6
+
+
+@pytest.mark.parametrize("misc_bool", [False, True])
+def test_render_frame_shadow_pass_is_trace_shadow(misc_bool):
+    """The frame's shadow pass is ``trace_shadow`` over its primary result
+    (back faces culled), which is ``shadow_rays`` + ``trace``'s hit mask: the
+    f32 image equals ``shade`` of that composition exactly."""
+    words, table, origin, dirs = _frame_inputs()
+    w, t = state.u32_to_device(words, "cpu"), state.table_to_device(table, "cpu")
+    img, res, _ = ttracer.render_frame(w, torch.from_numpy(origin), torch.from_numpy(dirs),
+                                       warp_table=t, misc_bool=misc_bool)
+    sh = ttracer.trace_shadow(w, res, warp_table=t, strict_descent=not misc_bool,
+                              image_width=RES)
+    o, d, active = ttracer.shadow_rays(res)
+    want = ttracer.trace(w, o, d, active_init=active, warp_table=t,
+                         strict_descent=not misc_bool).hit
+    assert torch.equal(sh, want) and sh.any()
+    gamma = 1.0 if misc_bool else 2.2
+    np.testing.assert_array_equal(img.numpy().reshape(-1, 3),
+                                  ttracer.shade(res, sh, gamma=gamma).numpy())

@@ -197,3 +197,93 @@ def test_oracle_copy_equals_jax_oracle(strict):
     for f in b:
         np.testing.assert_array_equal(a[f], b[f])
     np.testing.assert_array_equal(visits_t, visits_j)
+
+
+def _trace_t(words, origins, dirs, table=None, **kw):
+    return ttracer.trace(
+        state.u32_to_device(words, "cpu"), origins, dirs,
+        warp_table=None if table is None else state.table_to_device(table, "cpu"), **kw)
+
+
+@pytest.mark.parametrize("table", ["none", "combined"])
+def test_expanded_origins_and_image_dirs_equal_flat_call(table):
+    """One origin as a stride-0 ``expand`` view, and dirs as an image
+    [H, W, 3], give the contiguous flat call's results exactly."""
+    origins, dirs = _rays("bench")
+    words = _words("random6")
+    tab = None if table == "none" else _table("random6", table)
+    flat = _trace_t(words, torch.from_numpy(origins), torch.from_numpy(dirs), tab)
+    one = torch.from_numpy(origins[:1]).expand(dirs.shape[0], 3)
+    assert one.stride() == (0, 1)
+    image = torch.from_numpy(dirs).reshape(RES, RES, 3)
+    for res in (_trace_t(words, one, torch.from_numpy(dirs), tab),
+                _trace_t(words, one, image, tab)):
+        for f, a, b in zip(ttracer.TraceResult._fields, res, flat):
+            assert torch.equal(a, b), f
+    assert flat.hit.any()
+
+
+def _shadow_inputs(table):
+    origins, dirs = _rays("deep10")
+    words = _words("shell5")
+    tab = None if table == "none" else _table("shell5", table)
+    res = _trace_t(words, torch.from_numpy(origins), torch.from_numpy(dirs), tab)
+    return words, tab, res
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("table", ["none", "combined"])
+def test_trace_shadow_equals_shadow_rays_and_plain_trace(table, cull):
+    """``trace_shadow``'s rays are ``shadow_rays``'s, which equal the rays
+    built from the result in NumPy, and its hit mask is JAX ``trace``'s on
+    those rays, on every ray."""
+    words, tab, res = _shadow_inputs(table)
+    w = state.u32_to_device(words, "cpu")
+    t = None if tab is None else state.table_to_device(tab, "cpu")
+    hit = ttracer.trace_shadow(w, res, cull=cull, warp_table=t, image_width=RES)
+    assert hit.dtype == torch.bool and hit.shape == res.hit.shape
+
+    neg_sun = ttracer._neg_sun(ttracer.DEFAULT_SUN)
+    normal, pos, prim = res.normal.numpy(), res.hit_pos.numpy(), res.hit.numpy()
+    on = prim & ((normal[:, 0] * neg_sun[0] + normal[:, 1] * neg_sun[1])
+                 + normal[:, 2] * neg_sun[2] > 0) if cull else prim
+    o_np = pos + normal * np.float32(2.5e-6)
+    d_np = np.broadcast_to(neg_sun, pos.shape).copy()
+    o, d, active = ttracer.shadow_rays(res, cull=cull)
+    for a, b in ((o, o_np), (d, d_np), (active, on)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    b = _jax(words, o_np, d_np, tab, active_init=jnp.asarray(on))
+    np.testing.assert_array_equal(hit.numpy(), b["hit"])
+    assert hit.any() and (res.hit & ~hit).any()
+
+
+def _sh(w, r, image_width=RES, **kw):
+    return ttracer.trace_shadow(w, r, image_width=image_width, **kw)
+
+
+SHADOW_CASES = {
+    "u8 hit": (TypeError, lambda w, r: _sh(w, r._replace(hit=r.hit.to(torch.uint8)))),
+    "f64 hit_pos": (TypeError, lambda w, r: _sh(w, r._replace(hit_pos=r.hit_pos.double()))),
+    "short normal": (ValueError, lambda w, r: _sh(w, r._replace(normal=r.normal[:-1]))),
+    "strided normal": (ValueError, lambda w, r: _sh(
+        w, r._replace(normal=torch.cat([r.normal, r.normal], 1)[:, ::2]))),
+    "two-component sun": (ValueError, lambda w, r: _sh(w, r, sun_dir=(1.0, 0.0))),
+    "zero sun": (ValueError, lambda w, r: _sh(w, r, sun_dir=(0.0, 0.0, 0.0))),
+    "nan sun": (ValueError, lambda w, r: _sh(w, r, sun_dir=(np.nan, 1.0, 0.0))),
+    "width not dividing": (ValueError, lambda w, r: _sh(w, r, image_width=RES + 1)),
+    "width not given": (TypeError, lambda w, r: ttracer.trace_shadow(w, r)),
+    "i64 visits": (TypeError, lambda w, r: _sh(
+        w, r, visits=torch.zeros(w.shape[0], dtype=torch.int64))),
+    "origins stride (0, 2)": (ValueError, lambda w, r: ttracer.trace(
+        w, torch.zeros(1, 6).expand(r.hit.shape[0], 6)[:, ::2], r.normal)),
+    "strided image dirs": (ValueError, lambda w, r: ttracer.trace(
+        w, r.hit_pos, torch.cat([r.normal, r.normal], 1)[:, ::2].reshape(RES, RES, 3))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHADOW_CASES))
+def test_shadow_and_trace_reject_malformed_inputs(case):
+    words, _, res = _shadow_inputs("none")
+    exc, call = SHADOW_CASES[case]
+    with pytest.raises(exc):
+        call(state.u32_to_device(words, "cpu"), res)

@@ -221,3 +221,67 @@ def test_show_hits_view_is_clamped_counts():
     g = np.where(res.hit.numpy(), g, 0).astype(np.float32) ** np.float32(2.2)
     np.testing.assert_allclose(img.numpy().reshape(-1, 3), np.stack([g] * 3, -1),
                                rtol=1e-6, atol=0)
+
+
+def _jax_shadow(words, tab, hit, hit_pos, normal, cull):
+    """JAX ``trace``'s hit mask and visit counts for the shadow rays of a
+    primary result (NumPy arrays), built in NumPy as ``shadow_rays`` builds
+    them. They start on the primary hits, inside the root cube, so their
+    counts are exact under a table too (see the module docstring)."""
+    neg_sun = ttracer._neg_sun(ttracer.DEFAULT_SUN)
+    on = hit & ((normal[:, 0] * neg_sun[0] + normal[:, 1] * neg_sun[1])
+                + normal[:, 2] * neg_sun[2] > 0) if cull else hit
+    res_j, visits_j = jtracer.trace(
+        jnp.asarray(words), jnp.asarray(hit_pos + normal * np.float32(2.5e-6)),
+        jnp.asarray(np.broadcast_to(neg_sun, hit_pos.shape).copy()),
+        active_init=jnp.asarray(on), with_visits=True,
+        warp_table=None if tab is None else jnp.asarray(tab))
+    return np.asarray(res_j.hit), np.asarray(visits_j)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_trace_shadow_counts_equal_shadow_rays(cull):
+    """``trace_shadow`` adds its rays' counts into the array passed: exactly
+    JAX ``trace``'s counts of the same shadow rays, and its hit mask is
+    JAX's."""
+    words, tab = _words("random6"), _table("random6", "combined")
+    origin, dirs = _camera("bench")
+    w, t = state.u32_to_device(words, "cpu"), state.table_to_device(tab, "cpu")
+    res = ttracer.trace(w, torch.from_numpy(origin).reshape(1, 3).expand(RES * RES, 3),
+                        torch.from_numpy(dirs), warp_table=t)
+    base = torch.arange(words.shape[0], dtype=torch.int32) % 3
+    got = base.clone()
+    hit = ttracer.trace_shadow(w, res, cull=cull, warp_table=t, visits=got, image_width=RES)
+    hit_j, visits_j = _jax_shadow(words, tab, res.hit.numpy(), res.hit_pos.numpy(),
+                                  res.normal.numpy(), cull)
+    np.testing.assert_array_equal(hit.numpy(), hit_j)
+    np.testing.assert_array_equal((got - base).numpy(), visits_j)
+    assert hit.any() and visits_j.sum() > 0
+
+
+@pytest.mark.parametrize("flags", [False, True], ids=["counts", "flags"])
+def test_render_frame_visits_are_primary_then_shadow_counts(flags):
+    """A counted frame's visits equal JAX ``trace``'s: the primary pass's
+    marks (flags then the filled-leaf overlay of tracer.py:3414-3423, or
+    counts), then the counts of the shadow rays of every hit (not culled),
+    added into the same array. From a camera inside the root cube, so the
+    primary counts are exact under the table too."""
+    words, tab = _words("random6"), _table("random6", "combined")
+    origin, dirs = _camera("inside2")
+    _, res, visits = _port_frame(words, tab, origin, dirs, with_visits=True,
+                                 visit_flags=flags)
+    flat = dirs.reshape(-1, 3)
+    prim, want = jtracer.trace(
+        jnp.asarray(words), jnp.asarray(np.broadcast_to(origin, flat.shape).copy()),
+        jnp.asarray(flat), with_visits=True, visit_flags=flags, warp_table=jnp.asarray(tab))
+    hit, index = np.asarray(prim.hit), np.asarray(prim.index)
+    want = np.asarray(want).copy()
+    if flags:
+        leaf = hit & ~np.asarray(prim.forced) & (index >= 0)
+        counts = np.zeros_like(want)
+        np.add.at(counts, index[leaf], 1)
+        want = np.where(counts > 0, counts, want)
+    sh_hit, sh_visits = _jax_shadow(words, tab, hit, np.asarray(prim.hit_pos),
+                                    np.asarray(prim.normal), cull=False)
+    np.testing.assert_array_equal(visits.numpy(), want + sh_visits)
+    assert sh_hit.any() and sh_visits.sum() > 0
