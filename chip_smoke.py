@@ -20,9 +20,11 @@ against the NumPy oracle on a subsample, and drives the main paths:
   Session flying that generated world, streaming its chunks in and out,
   with a CPU-vs-CUDA lockstep on a small generated world (15);
 - the probes' row gathers and scalar adds at every shape of
-  ``probes/gather_probe.py`` and ``probes/pallas_min_probe.py``, and the
-  one-block lines t3, t6, t9 and t10b timed again 21 times each, kernel and
-  library call in turn (16).
+  ``probes/gather_probe.py`` and ``probes/pallas_min_probe.py``, the
+  one-block lines t1-t10b timed again 21 times each, kernel and library
+  call in turn, and both kernels' edge paths against their plain versions:
+  K8 on a width-3 table and a misaligned view, K9 on an odd length and a
+  view one element off 16 bytes (16).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -34,7 +36,8 @@ the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``bound_ms`` is the least time the card could take for its work in this run
 (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger; K1's
 counts each 32-byte pool row that this run's rays touch once, as their visit
-counts show, and K6's every pass), and ``library_ms`` the time of the one
+counts show, K6's every pass, and K8's each distinct table row its starts
+reach once), and ``library_ms`` the time of the one
 PyTorch call that computes the same function, where there is one.
 """
 
@@ -62,9 +65,10 @@ FOV = 70.0
 ORACLE_RAYS = 16384
 WARMUP, TIMED = 2, 5
 PROFILED = 5
-# Phase 16: the one-block probe lines whose single samples read slower than
-# their library call, timed again in turn.
-RETIMED, RETIME_SAMPLES = ("t3", "t6", "t9", "t10b"), 21
+# Phase 16: every one-block probe line of K9 (t1-t4) and K8 (t5-t10b),
+# timed again in turn with its library call.
+RETIMED = ("t1", "t2", "t3", "t4", "t5", "t6", "t7", "t8", "t9", "t10", "t10b")
+RETIME_SAMPLES = 21
 SESSION_STEPS = 24
 # Phase 12: a generic camera (from the default Character view knife-edge
 # rays can flip between implementations), and a turn for collapses.
@@ -804,7 +808,21 @@ def probe_phase(dev, report) -> None:
         st = gather.upload_starts(starts, dev)
         check(torch.equal(gather.gather_rows(t, st, 5), gather.gather_rows_plain(t, st.tensor, 5)),
               f"gather_rows differs from plain on a [4000, {t.shape[1]}] table")
-    phase("16 probes", "K8 equal to plain on a width-3 table and a misaligned width-4 view")
+    # K9's head and tail: a length that is no multiple of 4, and a view one
+    # element off a 16-byte boundary; f32 and u32, the scalar by value and
+    # by pointer.
+    for dtype, c in ((torch.float32, 0.75), (torch.int32, -3)):
+        base = torch.from_numpy(rng.standard_normal(4 * 4000 + 4).astype(np.float32)).to(dev)
+        if dtype == torch.int32:
+            base = base.view(torch.int32)
+        for x in (base[:4 * 4000 + 3], base[1:]):
+            for scalar in (c, torch.tensor([c], dtype=dtype, device=dev)):
+                check(torch.equal(gather.add_scalar(x, scalar), gather.add_scalar_plain(x, scalar)),
+                      f"add_scalar differs from plain on {dtype} [{x.numel()}] at offset "
+                      f"{x.storage_offset()} (scalar {type(scalar).__name__})")
+    phase("16 probes", "K8 equal to plain on a width-3 table and a misaligned width-4 view; "
+          "K9 equal to plain on 16,003 elements and a view one element off 16 bytes, f32 "
+          "and u32, the scalar by value and by pointer")
     for r in results:
         if "retimed" in r:
             t = r["retimed"]

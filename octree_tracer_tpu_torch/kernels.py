@@ -54,9 +54,9 @@ _SIGNATURES = {
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _P],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],
     "ot_block_grid": [_F, _F, _F, _F, _I, _P, _P],
-    "ot_gather_rows": [_P, _I64, _P, _I64, _I, _P, _P],
-    "ot_add_scalar_f32": [_P, _P, _I64, _F, _P, _P],
-    "ot_add_scalar_u32": [_P, _P, _I64, _U32, _P, _P],
+    "ot_gather_rows": [_P, _P, _I64, _P, _I, _I, _I64, _I64, _I, _I64, _I, _P],
+    "ot_add_scalar_f32": [_P, _P, _I64, _I64, _I64, _I64, _I, _F, _P, _P],
+    "ot_add_scalar_u32": [_P, _P, _I64, _I64, _I64, _I64, _I, _U32, _P, _P],
 }
 
 _lib = None

@@ -3,16 +3,18 @@
 and scalar add of those scripts, at their shapes, through kernels K8
 (``gather_rows``) and K9 (``add_scalar``).
 
-    python -m octree_tracer_tpu_torch.probes.gather_probe [name ...]
+    python -m octree_tracer_tpu_torch.probes.gather_probe [name ...] [--json PATH]
 
 Names are the JAX probes' (``p1``, ``p4``, ``p5``, ``t1`` ... ``t14b``; none
 runs them all). Each line prints ``OK=`` (the kernel's output equals the
 probe's own reference array, built with NumPy as the JAX probe builds it),
 ``plain=`` (it equals the plain PyTorch version), and on the card the
 kernel's ns per output row, ``table[idx]``'s (or ``x + c``'s) and the
-kernel's bound: its bytes over 3.35 TB/s. Times are device times (CUDA
-events behind a spin kernel, so the host's enqueue is not in them). On the TPU the variants of one
-shape differed in how their DMAs were issued (rows in flight, chunking,
+kernel's bound: its bytes over 3.35 TB/s, counting each distinct table row
+its starts reach once (:func:`gather.gather_bytes`), each output byte once
+and 4 bytes a start. Times are device times (CUDA events behind a spin
+kernel, so the host's enqueue is not in them). On the TPU the variants of
+one shape differed in how their DMAs were issued (rows in flight, chunking,
 unrolling); on Hopper they are one kernel, so they share a measurement
 configuration and their lines differ only in name.
 
@@ -30,6 +32,8 @@ and index counts and times nothing.
 
 from __future__ import annotations
 
+import argparse
+import json
 import sys
 import time
 
@@ -38,7 +42,8 @@ import torch
 
 from .. import kernels
 from ..state import to_numpy_u32, u32_to_device
-from .gather import add_scalar, add_scalar_plain, gather_rows, gather_rows_plain, upload_starts
+from .gather import (add_scalar, add_scalar_plain, gather_bytes, gather_rows,
+                     gather_rows_plain, upload_starts)
 
 W = 1 << 18  # index count of the JAX probes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -68,6 +73,19 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_in_turn(fns: dict, rounds: int, reps: int, n_calls: int = 1) -> dict:
+    """Median and range of ``rounds`` device times (ms a call) of each
+    function in ``fns``, timed in turn, the order reversed every other
+    round."""
+    names = list(fns)
+    samples = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            samples[k].append(cuda_ms(fns[k], reps) / n_calls)
+    return {k: {"median": float(np.median(v)), "range": [min(v), max(v)]}
+            for k, v in samples.items()}
 
 
 class _Probe:
@@ -133,18 +151,19 @@ class _Probe:
                                    gather_rows_plain(table, st.tensor, rows))
                        for st in sets)
         k = len(sets)
-        res = {"kernel": "gather_rows", "library": "table[idx]", "ok": bool(ok),
-               "plain_ok": bool(plain_ok), "max_abs_err": 0.0 if plain_ok else float("inf")}
 
         def cycle(fn):
             return lambda: [fn(i) for i in range(k)]
 
+        res = {"kernel": "gather_rows", "library": "table[idx]", "ok": bool(ok),
+               "plain_ok": bool(plain_ok), "max_abs_err": 0.0 if plain_ok else float("inf")}
         res.update(self._times(name, cycle(lambda i: gather_rows(table, sets[i], rows)),
                                cycle(lambda i: gather_rows_plain(table, sets[i].tensor, rows)),
                                cycle(lambda i: table[idx[i]]), k))
         n_rows = sets[0].tensor.shape[0] * rows
         g, w = table_np.shape
-        nbytes = n_rows * w * 4 * 2 + 4 * sets[0].tensor.shape[0]
+        # Each set's own bytes (distinct rows read once); a call's, their mean.
+        nbytes = sum(gather_bytes(s, rows, w) for s in starts_sets) / k
         res.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes, table_rows=g,
                    width=w)
         return self._emit(name, res, n_rows, what or f"{n_rows} rows of {w} words from "
@@ -268,15 +287,12 @@ def run(which, pr: _Probe) -> None:
 
 def retime(pr: _Probe, name: str, samples: int) -> dict:
     """``samples`` device times of line ``name``'s kernel and of its library
-    call, taken in turn (kernel, library, kernel, ...): their medians and
-    ranges in ms a call."""
+    call, taken in turn: their medians and ranges in ms a call."""
     kernel_fn, library_fn, n_calls = pr.fns[name]
-    k, lib = [], []
-    for _ in range(samples):
-        k.append(cuda_ms(kernel_fn, pr.reps) / n_calls)
-        lib.append(cuda_ms(library_fn, pr.reps) / n_calls)
-    return {"samples": samples, "ms_median": float(np.median(k)), "ms_range": [min(k), max(k)],
-            "library_ms_median": float(np.median(lib)), "library_ms_range": [min(lib), max(lib)]}
+    t = time_in_turn({"kernel": kernel_fn, "library": library_fn}, samples, pr.reps, n_calls)
+    return {"samples": samples, "ms_median": t["kernel"]["median"],
+            "ms_range": t["kernel"]["range"], "library_ms_median": t["library"]["median"],
+            "library_ms_range": t["library"]["range"]}
 
 
 def main(which=None, device="cuda", shrink: int = 0, reps: int = 20, log=print,
@@ -284,9 +300,9 @@ def main(which=None, device="cuda", shrink: int = 0, reps: int = 20, log=print,
     """Run the named probe lines (all of them by default) on ``device``;
     returns one dict per line (kernel, ok, plain_ok, rows, bytes, the line's
     kernel launches, and on the card ms, plain_ms, library_ms and bound_ms
-    per call). The lines named in
-    ``retimed`` are then timed again ``samples`` times, kernel and library
-    call in turn, into their dict's ``retimed`` (see :func:`retime`)."""
+    per call). The lines named in ``retimed`` are then timed again
+    ``samples`` times, kernel and library call in turn, into their dict's
+    ``retimed`` (see :func:`retime`)."""
     dev = kernels.resolve_device(device)
     which = set(which or NAMES)
     unknown = which - set(NAMES)
@@ -306,5 +322,12 @@ def main(which=None, device="cuda", shrink: int = 0, reps: int = 20, log=print,
 
 
 if __name__ == "__main__":
-    results = main(sys.argv[1:] or None)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*", help="probe lines (default: all)")
+    ap.add_argument("--json", help="write the results to this file")
+    args = ap.parse_args()
+    results = main(args.names or None)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f)
     sys.exit(0 if all(r["ok"] and r["plain_ok"] for r in results) else 1)

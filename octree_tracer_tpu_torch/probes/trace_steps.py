@@ -6,12 +6,10 @@ of the port, timed in turn on one card.
 
 Each TREE is a directory holding an ``octree_tracer_tpu_torch`` package: a
 ``git archive`` of an earlier commit, or a copy of this tree with one change.
-Each tree runs in a worker process of its own (its package first on
-``PYTHONPATH``) that builds its kernels, sets up the deep10 scene at
-1920x1080 with the combined level-7 table and the bench camera, and waits;
-the workers then measure one at a time, in tree order and in reverse order
-on alternate rounds, so every pair of neighbours is timed A B B A on the
-same card. The trees need only the port's public API (``render_frame``,
+Each tree's worker (see ``probes/trees.py``) builds its kernels and sets up
+the deep10 scene at 1920x1080 with the combined level-7 table and the bench
+camera; the workers then measure in turn, A B B A on the same card. The
+trees need only the port's public API (``render_frame``,
 ``trace``, ``skip.build_warp_skip_table``): each worker runs
 ``render_frame`` once per frame kind with its ``trace`` (and
 ``trace_shadow``, where the tree has it) wrapped, and replays the launches
@@ -75,8 +73,8 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def worker(data_dir: str) -> None:
-    """Set up this process's tree, report, then measure on each request."""
+def setup(data_dir: str):
+    """In a worker: set up the tree's frame; each request measures it."""
     import torch
     from octree_tracer_tpu_torch import kernels, state
     from octree_tracer_tpu_torch.render import camera, skip, tracer
@@ -130,12 +128,9 @@ def worker(data_dir: str) -> None:
              "frame_pr": lambda: frame(False)}
     ptxas = [line for line in log.splitlines()
              if "trace_kernel" in line or "registers" in line or "spill" in line]
-    print(json.dumps({"ready": True, "digest": digest, "library": lib_path,
-                      "hits": int(res.hit.sum()), "ptxas": ptxas}), flush=True)
-    for line in sys.stdin:
-        if line.strip() != "measure":
-            break
-        print(json.dumps({k: cuda_ms(fn) for k, fn in timed.items()}), flush=True)
+    ready = {"ready": True, "digest": digest, "library": lib_path, "hits": int(res.hit.sum()),
+             "ptxas": ptxas}
+    return ready, lambda request: {k: cuda_ms(fn) for k, fn in timed.items()}
 
 
 def _sass(lib: str, ptxas: list[str], out_path: str) -> bool:
@@ -165,51 +160,29 @@ def main(argv=None) -> int:
     from octree_tracer_tpu_torch import kernels, scenes
     from octree_tracer_tpu_torch.render import camera
 
+    from . import trees
+
     if not torch.cuda.is_available():
         print("trace_steps: no CUDA device", file=sys.stderr)
         return 1
     os.makedirs(args.out, exist_ok=True)
     names = [os.path.basename(os.path.normpath(t)) for t in args.trees]
     data_dir = tempfile.mkdtemp(prefix="ot_trace_steps_")
-    procs = []
     try:
         np.save(os.path.join(data_dir, "words.npy"), scenes.deep_shell(DEPTH))
         np.save(os.path.join(data_dir, "ci.npy"),
                 camera.camera_matrices(CAM_POS, CAM_LOOK, FOV, W, H)[1])
-        for tree in args.trees:
-            tree = os.path.abspath(tree)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--worker", data_dir],
-                cwd=tree, env={**os.environ, "PYTHONPATH": tree}, stdin=subprocess.PIPE,
-                stdout=subprocess.PIPE, text=True))
-
-        def reply(p):
-            line = p.stdout.readline()
-            if not line:
-                raise RuntimeError(f"a worker ended with code {p.wait()}")
-            return json.loads(line)
-
-        ready = [reply(p) for p in procs]
-        samples = {name: {m: [] for m in METRICS} for name in names}
-        for r in range(args.rounds):
-            order = range(len(procs)) if r % 2 == 0 else reversed(range(len(procs)))
-            for i in order:
-                procs[i].stdin.write("measure\n")
-                procs[i].stdin.flush()
-                for m, v in reply(procs[i]).items():
-                    samples[names[i]][m].append(v)
+        ready, replies = trees.run(args.trees, __file__, (data_dir,), ("measure",),
+                                   args.rounds)
     finally:
-        for p in procs:
-            if p.stdin and not p.stdin.closed:
-                p.stdin.close()
-            p.wait(timeout=60)
         shutil.rmtree(data_dir, ignore_errors=True)
+    samples = {name: {m: [rep[m] for rep in replies["measure"][i]] for m in METRICS}
+               for i, name in enumerate(names)}
 
     equal = True
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()
-    print(f"{card[0] if card else torch.cuda.get_device_name(0)}; {len(names)} trees, "
-          f"{args.rounds} rounds, ms per call (median, [min, max])")
+    device = trees.card()
+    print(f"{device}; {len(names)} trees, {args.rounds} rounds, ms per call (median, "
+          f"[min, max])")
     for name, rd in zip(names, ready):
         same = rd["digest"] == ready[0]["digest"]
         equal = equal and same
@@ -227,13 +200,9 @@ def main(argv=None) -> int:
             cells.append(f"{name} {float(np.median(v)):.4f} [{min(v):.4f}, {max(v):.4f}]")
         print(f"{m}: " + "; ".join(cells))
     with open(os.path.join(args.out, "trace_steps.json"), "w") as f:
-        json.dump({"device": card[0] if card else torch.cuda.get_device_name(0), "trees": names,
-                   "samples": samples, "ready": ready}, f)
+        json.dump({"device": device, "trees": names, "samples": samples, "ready": ready}, f)
     return 0 if equal else 1
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
-    else:
-        sys.exit(main())
+    sys.exit(main())

@@ -180,9 +180,208 @@ def test_trace_steps_needs_the_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_gather_trees_needs_the_card(monkeypatch, capsys):
+    """The cross-tree K8/K9 timer, like K1's, exits 1 without a card."""
+    from octree_tracer_tpu_torch.probes import gather_trees
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert gather_trees.main(["no_such_tree"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+_PAYLOAD = """
+import os, time
+import marker
+
+def setup(tag):
+    def serve(request):
+        return {"tree": marker.NAME, "request": request, "ns": time.monotonic_ns()}
+    return {"tree": marker.NAME, "tag": tag, "cwd": os.path.basename(os.getcwd())}, serve
+"""
+
+
+def test_trees_run_times_each_tree_in_turn(tmp_path):
+    """Each worker imports its own tree's code, and the trees answer every
+    request in turn, in reverse order on alternate rounds."""
+    from octree_tracer_tpu_torch.probes import trees
+
+    dirs = []
+    for name in ("old", "new"):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "marker.py").write_text(f"NAME = {name!r}\n")
+        dirs.append(str(d))
+    payload = tmp_path / "payload.py"
+    payload.write_text(_PAYLOAD)
+    ready, replies = trees.run(dirs, str(payload), ("x",), ("a", "b"), rounds=3)
+    assert ready == [{"tree": "old", "tag": "x", "cwd": "old"},
+                     {"tree": "new", "tag": "x", "cwd": "new"}]
+    assert list(replies) == ["a", "b"]
+    for request, per_tree in replies.items():
+        assert [[r["tree"] for r in rounds] for rounds in per_tree] == [["old"] * 3, ["new"] * 3]
+        assert all(r["request"] == request for rounds in per_tree for r in rounds)
+        old, new = ([r["ns"] for r in rounds] for rounds in per_tree)
+        assert old[0] < new[0] and new[1] < old[1] and old[2] < new[2]
+    assert max(r["ns"] for r in replies["a"][0] + replies["a"][1]) < min(
+        r["ns"] for r in replies["b"][0] + replies["b"][1])
+
+
 def test_probe_retimes_only_on_the_card():
     """On the CPU the probe times nothing, so it re-times nothing either."""
     results = gather_probe.main(["t3", "t6"], device="cpu", shrink=8, log=lambda m: None,
                                 retimed=("t3", "t6"), samples=3)
     assert [r["name"] for r in results] == ["t3", "t6"]
     assert all(r["ok"] and r["plain_ok"] and "retimed" not in r for r in results)
+
+
+def _lines(names):
+    return {r["name"]: r for r in gather_probe.main(names, device="cpu", shrink=8,
+                                                    log=lambda m: None)}
+
+
+def test_gather_bound_counts_distinct_rows():
+    """K8's bytes: each distinct table row its starts reach read once, each
+    output row written once, 4 bytes a start (t11g draws 1,024 rows of a
+    128-row table at shrink 8; t5's starts repeat one 128-row block)."""
+    lines = _lines(["t11g", "t5", "p1"])
+    idx = np.random.default_rng(0).integers(0, 128, 1024, dtype=np.int32)
+    distinct = np.unique(idx).size  # every row of the table is drawn
+    assert lines["t11g"]["bytes"] == (distinct + 1024) * 128 * 4 + 4 * 1024
+    assert lines["t11g"]["bytes"] < 2 * 1024 * 128 * 4  # not a table read a row
+    assert lines["t5"]["bytes"] == (7 * 128 + 8 * 128) * 128 * 4 + 4 * 8
+    # P1 takes its 16 sets in turn: a call's bytes are their mean.
+    p1 = [r for name, r in lines.items() if name.startswith("P1")]
+    assert len(p1) == 6
+    g = p1[0]["table_rows"]
+    rng = np.random.default_rng(0)
+    sets = [rng.integers(0, g, 1024, dtype=np.int32) for _ in range(gather_probe.P1_SETS)]
+    want = np.mean([(np.unique(s).size + 1024) * 32 + 4 * 1024 for s in sets])
+    assert p1[0]["bytes"] == pytest.approx(want)
+
+
+@pytest.mark.parametrize("starts, rows, w, distinct", [
+    ([5, 5, 5], 1, 8, 1),
+    ([0, 1, 2], 2, 8, 4),
+    ([10, 3], 4, 128, 8),
+])
+def test_gather_bytes(starts, rows, w, distinct):
+    n = len(starts)
+    assert gather.gather_bytes(np.asarray(starts), rows, w) == (distinct + n * rows) * w * 4 + 4 * n
+
+
+GATHER_PLANS = {
+    # name: (g, w, n_starts, rows, table_addr, out_addr) -> fields
+    "P4 A: 8-word rows of a 32 MiB table": (
+        (1 << 20, 8, 1 << 18, 1, 0, 0),
+        dict(design="tile", vector=True, row_units=2, seg=2, log_seg=1,
+             blocks=(1 << 19) // (64 * 8), wide=False)),
+    "P4 C: a 1 MiB table sits in the L2": (
+        (1 << 15, 8, 1 << 18, 1, 0, 0),
+        dict(design="flat", vector=True, seg=2, log_seg=1, blocks=(1 << 19) // 256)),
+    "t11: 128-word rows": (
+        (1 << 18, 128, 1 << 18, 1, 0, 0),
+        dict(design="tile", row_units=32, seg=32, log_seg=5, wide=False,
+             blocks=(1 << 23) // 512)),
+    "t11g: a 16 MiB table is past a sixteenth of the L2": (
+        (1 << 15, 128, 1 << 18, 1, 0, 0), dict(design="tile", seg=32)),
+    "t13: 2^17 rows": ((1 << 18, 128, 1 << 17, 1, 0, 0), dict(design="tile", blocks=1 << 13)),
+    "t10b: one block of 8 rows": (
+        (1024, 128, 1, 8, 0, 0),
+        dict(design="flat", seg=256, log_seg=8, blocks=1)),
+    "t6: 128 rows": ((1024, 128, 1, 128, 0, 0), dict(design="flat", seg=4096, blocks=16)),
+    "t9: 64 rows, one wave": ((1024, 8, 64, 1, 0, 0), dict(design="flat", seg=2, blocks=1)),
+    "P1 128 MiB: 16 index sets of 8-word rows": (
+        (1 << 22, 8, 1 << 18, 1, 0, 0), dict(design="tile", log_seg=1, wide=False)),
+    "4-word rows: one vector a segment stays flat": (
+        (1 << 22, 4, 1 << 20, 1, 0, 0), dict(design="flat", vector=True, seg=1, log_seg=0)),
+    "width 3: words, no power of two": (
+        (4000, 3, 777, 5, 0, 0),
+        dict(design="flat", vector=False, row_units=3, seg=15, log_seg=-1,
+             blocks=-(-777 * 15 // 256))),
+    "misaligned table: words": (
+        (4000, 4, 777, 5, 4, 0), dict(design="flat", vector=False, seg=20, log_seg=-1)),
+    "misaligned output: words": ((4000, 4, 8, 4, 0, 8), dict(vector=False, log_seg=4)),
+    "2^31 table vectors: 64-bit": ((1 << 30, 8, 1 << 18, 1, 0, 0), dict(wide=True)),
+    "2^31 output vectors: 64-bit": ((1 << 20, 128, 1 << 26, 1, 0, 0),
+                                    dict(design="tile", wide=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_PLANS))
+def test_gather_plan(case):
+    args, want = GATHER_PLANS[case]
+    plan = gather.gather_plan(*args)
+    assert {k: getattr(plan, k) for k in want} == want
+
+
+@pytest.mark.parametrize("w, rows, table_addr", [
+    (3, 1, 0),  # width 3 has no 16-byte vectors
+    (8, 3, 0),  # a segment of 6 vectors is no power of two
+    (8, 1, 4),  # a table off 16 bytes
+])
+def test_gather_plan_tiles_only_power_of_two_vector_segments(w, rows, table_addr):
+    """A large gather out of a large table still takes the flat kernel where
+    the tile kernel's shifts and 16-byte loads do not apply."""
+    plan = gather.gather_plan(1 << 22, w, 1 << 18, rows, table_addr, 0)
+    assert plan.design == "flat" and plan.blocks * gather.BLOCK >= (1 << 18) * plan.seg
+
+
+ADD_PLANS = {
+    # name: (n, addr) -> (head, n_vec, tail, blocks, wide)
+    "t3": ((1024 * 128, 0), (0, 32768, 0, 128, False)),
+    "t1": ((8 * 128, 0), (0, 256, 0, 1, False)),
+    "odd length": ((4 * 4000 + 3, 0), (0, 4000, 3, 16, False)),
+    "one element off 16 bytes": ((4 * 4000 + 3, 4), (3, 4000, 0, 16, False)),
+    "two elements off, odd length": ((4 * 4000 + 1, 8), (2, 3999, 3, 16, False)),
+    "three elements off": ((4 * 4000 + 1, 12), (1, 4000, 0, 16, False)),
+    "shorter than the head": ((2, 8), (2, 0, 0, 1, False)),
+    "empty": ((0, 0), (0, 0, 0, 0, False)),
+    "one vector past a block": ((4 * 257, 0), (0, 257, 0, 2, False)),
+    "2^31 elements: 64-bit": ((1 << 31, 0), (0, 1 << 29, 0, 1 << 21, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADD_PLANS))
+def test_add_plan(case):
+    (n, addr), want = ADD_PLANS[case]
+    assert tuple(gather.add_plan(n, addr)) == want
+
+
+@pytest.mark.parametrize("addr", [1, 2, 3, 6])
+def test_add_plan_rejects_unaligned(addr):
+    """A 4-byte tensor lies on a 4-byte boundary; no plan serves another."""
+    with pytest.raises(ValueError, match="4-byte"):
+        gather.add_plan(100, addr)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_output_keeps_the_input_alignment(offset):
+    x = torch.zeros(64, dtype=torch.int32)[offset:offset + 37]
+    out = gather._empty_like_aligned_as(x)
+    assert out.shape == x.shape and out.is_contiguous()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+
+
+@pytest.mark.parametrize("dtype", ["f32", "u32"])
+@pytest.mark.parametrize("view", ["odd length", "offset by one", "offset by two, odd"])
+@pytest.mark.parametrize("on_device", [False, True])
+def test_add_scalar_edges_match_numpy(dtype, view, on_device):
+    """The K9 edge shapes chip_smoke.py checks on the card (a length that is
+    no multiple of 4, views off a 16-byte boundary), here against NumPy."""
+    rng = np.random.default_rng(7)
+    n = 4 * 4000 + 4
+    if dtype == "f32":
+        base_np = rng.standard_normal(n).astype(np.float32)
+        c = np.float32(0.75)
+    else:
+        base_np = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        c = np.uint32(0xFFFFFFFD)  # -3 modulo 2^32
+    lo, hi = {"odd length": (0, n - 1), "offset by one": (1, n),
+              "offset by two, odd": (2, n - 1)}[view]
+    base = _device_x(base_np)
+    x = base[lo:hi]
+    scalar = (torch.tensor([c.view(np.int32) if dtype == "u32" else c]) if on_device
+              else int(c) if dtype == "u32" else float(c))
+    got = _host(gather.add_scalar(x, scalar), base_np)
+    np.testing.assert_array_equal(got, base_np[lo:hi] + c)
+    assert torch.equal(gather.add_scalar(x, scalar), gather.add_scalar_plain(x, scalar))
