@@ -33,19 +33,40 @@ from ..core.cpu_octree import CpuOctree
 from ..core.voxel import CHUNK_OFFSET
 from ..scenes import build_octree_leaves
 from ..state import narrow_u32
-from .sdf import island_sdf
+from .sdf import BASE_SCALE, SPIKE_SCALE, island_sdf
 
 BLOCK_STONE = 1
 BLOCK_GRASS = 3
 # The plain version evaluates the grid in this many x-slabs to bound memory.
 X_SLABS = 32
 
-# f32 operations of one island_sdf evaluation as K7 executes it (adds,
-# subtracts, multiplies, divides, square roots, floors, fmods, min/max, abs,
-# compares and selects, each one operation; csrc/block_grid.cu counts them
-# function by function): simplex_noise3 372 (x4), sdf_box 19, sdf_cone 38,
-# smin 13, smoothstep 8 (x2), the island's own 38.
+# f32 operations of one island_sdf evaluation as the algorithm states it
+# (adds, subtracts, multiplies, divides, square roots, floors, floor-mods,
+# min/max, abs, compares and selects, each one operation;
+# csrc/block_grid.cu counts them function by function): simplex_noise3 372
+# (x4), sdf_box 19, sdf_cone 38, smin 13, smoothstep 8 (x2), the island's own
+# 38. Kept as the measure that compares across K7's designs.
 SDF_OPS = 4 * 372 + 19 + 38 + 13 + 2 * 8 + 38
+# The f32 operations the grid needs, which K7's bound counts (``k7_ops``). A
+# simplex corner's three permutations and gradient (23 + 39 operations) are a
+# pure function of an integer in [0, 577], so a table of 578 entries at 6 +
+# 39 operations each replaces them; of the 620 operations a point that
+# remain, 37 read only x and z (the island's own 17, sdf_box's 8, sdf_cone's
+# 12), so a column of the grid needs them once.
+K7_TABLE_OPS = 578 * (6 + 39)
+K7_COLUMN_OPS = 17 + 8 + 12
+K7_POINT_OPS = SDF_OPS - 4 * 4 * (23 + 39) - K7_COLUMN_OPS
+
+# K7 computes the noise's floor-mod by 289 in int32, exact on integer-valued
+# floats below this magnitude (csrc/block_grid.cu).
+K7_EXACT_LIMIT = float(1 << 31)
+# The largest value of the permutation polynomial (34x + 1)x the noise takes
+# mod 289: x is at most 288 + 288 + 1.
+PERMUTE_MAX = (34 * 577 + 1) * 577
+# The largest factor that scales a coordinate into the noise, in f32 as
+# island_sdf applies it: twice the largest of BASE_SCALE and SPIKE_SCALE.
+_NOISE_SCALE_MAX = float(max(np.float32(BASE_SCALE * 2.0),
+                             np.float32(SPIKE_SCALE).max() * np.float32(2.0)))
 
 
 @dataclass
@@ -117,11 +138,43 @@ def block_grid_packed_plain(pos, chunk_depth: int, base_depth: int,
     return pack_grid(block_grid_plain(pos, chunk_depth, base_depth, device))
 
 
+def k7_ops(chunk_depth: int) -> int:
+    """The f32 operations of one chunk's grid at ``chunk_depth`` (S^2 (S +
+    1) points, S^2 columns, one table), the count K7's bound divides by the
+    card's rate."""
+    s = 1 << chunk_depth
+    return s * s * (s + 1) * K7_POINT_OPS + s * s * K7_COLUMN_OPS + K7_TABLE_OPS
+
+
+def k7_exact_range(pos, chunk_depth: int, base_depth: int) -> float:
+    """An upper bound on ``|x|`` over every ``x % 289`` that the island SDF
+    takes over the chunk at ``pos`` (its grid and the extra y-plane); every
+    such x is an integer-valued float. They are the permutation polynomial's
+    values, at most ``PERMUTE_MAX``, and the simplex lattice corners
+    ``floor(v + s)``, where v is a coordinate times at most
+    ``_NOISE_SCALE_MAX`` (4.6) and s a third of three such, so
+    ``|floor(v + s)| <= 2 * 4.6 * |coordinate| + 1``; the bound adds 1e-5 of
+    relative slack for f32 rounding. Infinite for a ``pos`` that is not
+    finite."""
+    p = _pos_array(pos).astype(np.float64)
+    if not np.isfinite(p).all():
+        return float("inf")
+    reach = float(np.abs(p).max()) + ((1 << chunk_depth) + 1) * _grid_scale(chunk_depth,
+                                                                            base_depth)
+    return max(float(PERMUTE_MAX), 2.0 * _NOISE_SCALE_MAX * reach * (1.0 + 1e-5) + 1.0)
+
+
 def _launch_block_grid(pos, chunk_depth: int, base_depth: int,
                        device: torch.device) -> torch.Tensor:
-    """K7 on a CUDA ``device``: ceil(S^3 / 16) packed words."""
+    """K7 on a CUDA ``device``: ceil(S^3 / 16) packed words. Raises, before
+    any launch, for a chunk whose floor-mod inputs could reach
+    ``K7_EXACT_LIMIT`` (``k7_exact_range``)."""
     if not 0 <= chunk_depth <= 10:
         raise ValueError(f"chunk_depth must be in [0, 10], got {chunk_depth}")
+    reach = k7_exact_range(pos, chunk_depth, base_depth)
+    if not reach < K7_EXACT_LIMIT:
+        raise ValueError(f"the chunk at {pos} takes x % 289 of |x| up to {reach:.4g}, "
+                         f"past K7's exact range {K7_EXACT_LIMIT:.4g}")
     p = _pos_array(pos)
     out = torch.empty(-(-(1 << (3 * chunk_depth)) // 16), dtype=torch.int32,
                       device=device)

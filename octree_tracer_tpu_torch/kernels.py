@@ -49,7 +49,7 @@ _SIGNATURES = {
     "ot_trace_shadow": [_P, _I64, _P, _P, _P, _F, _F, _F, _I, _I64, _I, _P, _I, _I, _I,
                         _I, _I] + [_P] * 3,
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
-    "ot_raygen": [_P, _I, _I, _P, _P, _P],
+    "ot_raygen": [_F] * 16 + [_I, _I, _P, _P, _P],
     "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 5,
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _P],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],

@@ -4,8 +4,9 @@ The host functions are the JAX package's ``render/camera.py`` NumPy code,
 copied so that the port imports no module of that package (tests hold each
 copy equal to its original). ``generate_rays_device`` is the counterpart of
 ``camera.py:80`` in pixel order only: the block-major order was a TPU layout.
-On a CUDA device it launches kernel K3 (``csrc/raygen.cu``), on the CPU it
-runs ``generate_rays_device_plain``.
+On a CUDA device it launches kernel K3 (``csrc/raygen.cu``) with the matrix
+by value (``_raygen_args``), on the CPU it runs
+``generate_rays_device_plain``.
 """
 
 from __future__ import annotations
@@ -105,16 +106,37 @@ def generate_rays_device_plain(camera_inverse: torch.Tensor, width: int,
     return origin, torch.stack([c / norm for c in d], dim=-1)
 
 
+def _raygen_args(camera_inverse) -> tuple[float, ...]:
+    """The 16 entries of a f32[4, 4] inverse camera matrix (NumPy array or
+    tensor), row-major, as the Python floats of their f32 values: K3's
+    arguments by value. A CUDA tensor is read back to the host first, which
+    waits for the stream."""
+    if isinstance(camera_inverse, torch.Tensor):
+        camera_inverse = camera_inverse.detach().cpu().numpy()
+    a = np.asarray(camera_inverse)
+    if a.dtype != np.float32:
+        raise TypeError(f"camera_inverse must be float32, got {a.dtype}")
+    if a.shape != (4, 4):
+        raise ValueError(f"camera_inverse must have shape (4, 4), got {a.shape}")
+    return tuple(float(v) for v in a.reshape(16))
+
+
 def generate_rays_device(camera_inverse, width: int, height: int, device):
     """(origin f32[3], dirs f32[H, W, 3]) on ``device`` from the 4x4 inverse
-    camera matrix (NumPy array or tensor)."""
+    camera matrix (f32 NumPy array or tensor).
+
+    On a CUDA device the matrix goes to kernel K3 by value: a NumPy array or
+    a CPU tensor costs no copy to the card and no wait. A CUDA tensor is
+    accepted too, at the price of one device-to-host read, which waits for
+    the stream; the port's callers pass NumPy."""
     device = torch.device(device)
-    ci = torch.as_tensor(camera_inverse).to(device)
-    kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
     if not kernels.uses_kernel(device):
+        ci = torch.as_tensor(camera_inverse).to(device)
+        kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
         return generate_rays_device_plain(ci, width, height)
+    args = _raygen_args(camera_inverse)
     origin = torch.empty(3, dtype=torch.float32, device=device)
     dirs = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    kernels.launch("raygen", "ot_raygen", device, kernels.ptr(ci), width,
-                   height, kernels.ptr(origin), kernels.ptr(dirs))
+    kernels.launch("raygen", "ot_raygen", device, *args, width, height,
+                   kernels.ptr(origin), kernels.ptr(dirs))
     return origin, dirs

@@ -150,6 +150,100 @@ def test_block_grid_small_chunks_and_packing_limit():
         procedural.block_grid_packed((-1.0, -1.0, -1.0), 1, 1, device="cpu")
 
 
+# The 8 chunk corners of the CLI's default world (world_depth 1).
+DEFAULT_CORNERS = [(x, y, z) for x in (-1.0, 0.0) for y in (-1.0, 0.0) for z in (-1.0, 0.0)]
+
+
+# Chunks far from the origin but inside the range, where the lattice corners
+# and not the permutation bound the floor-mod inputs.
+FAR_INSIDE = [(1.0e7, -3.0e6, 7.5e6), (-2.0e8, 1.0e3, 5.0)]
+
+
+@pytest.mark.parametrize("pos,depth", [(p, 5) for p in DEFAULT_CORNERS]
+                         + [(p, 2) for p in FAR_INSIDE])
+def test_floor_mod_inputs_inside_k7_exact_range(pos, depth, monkeypatch):
+    """Every ``x % 289`` of the plain block grid is of an integer-valued
+    float inside ``k7_exact_range``, the range on which K7's integer
+    floor-mod equals the float one."""
+    seen = []
+    floor_mod = noise.floor_mod
+
+    def spy(x, m):
+        seen.append((bool(torch.equal(x, torch.trunc(x))), float(x.abs().max())))
+        return floor_mod(x, m)
+
+    monkeypatch.setattr(noise, "floor_mod", spy)
+    procedural.block_grid_plain(pos, depth, 1)
+    # Each x-slab: 4 simplex evaluations, 3 lattice corners and 12 permutations.
+    assert len(seen) == min(procedural.X_SLABS, 1 << depth) * 4 * 15
+    assert all(integral for integral, _ in seen)
+    top = max(m for _, m in seen)
+    bound = procedural.k7_exact_range(pos, depth, 1)
+    assert top <= bound < procedural.K7_EXACT_LIMIT
+    if pos in DEFAULT_CORNERS:
+        assert bound == procedural.PERMUTE_MAX == procedural.k7_exact_range(pos, 9, 1)
+    else:
+        assert top > procedural.PERMUTE_MAX
+
+
+def test_noise_scale_max_is_the_sdfs_largest(monkeypatch):
+    """``k7_exact_range`` scales coordinates by ``_NOISE_SCALE_MAX``: no
+    noise input of ``island_sdf`` exceeds it times its coordinate, and one
+    octave reaches it, so it follows the SDF's octave scales."""
+    from octree_tracer_tpu_torch.gen import sdf
+
+    ratios = []
+    simplex = sdf.simplex_noise3
+
+    def spy(v):
+        ratios.append(float((v.double().abs() / pos.double().abs()).max()))
+        return simplex(v)
+
+    monkeypatch.setattr(sdf, "simplex_noise3", spy)
+    pos = torch.from_numpy(PTS)
+    island_sdf(pos)
+    assert len(ratios) == 4
+    assert max(ratios) <= procedural._NOISE_SCALE_MAX * (1 + 2.0 ** -23)
+    assert max(ratios) == pytest.approx(procedural._NOISE_SCALE_MAX, rel=1e-6)
+
+
+def test_default_corners_are_generate_worlds(tmp_path):
+    """The corners these tests and ``probes/kernel_steps.py`` use are the
+    chunks ``generate_world`` dispatches for the default world, in order."""
+    from octree_tracer_tpu_torch.probes import kernel_steps
+
+    class Recorder:
+        def __init__(self):
+            self.corners = []
+
+        def dispatch_chunk(self, pos, base_depth):
+            self.corners.append((tuple(float(v) for v in pos), base_depth))
+
+        def finish_chunk(self, handle):
+            return None
+
+    rec = Recorder()
+    World().generate_world(str(tmp_path / "w"), rec, world_depth=1)
+    assert rec.corners == [(c, 1) for c in DEFAULT_CORNERS]
+    assert kernel_steps.CORNERS == DEFAULT_CORNERS
+
+
+FAR = [(3e8, 0.0, 0.0), (0.0, -1e9, 0.0), (0.0, 0.0, 2.5e8), (float("nan"), 0.0, 0.0),
+       (0.0, float("inf"), 0.0)]
+
+
+@pytest.mark.parametrize("pos", FAR)
+def test_k7_range_check_rejects_far_chunks(pos):
+    """A chunk whose lattice corners could reach 2^31 is past K7's exact
+    range: the wrapper raises before it launches (on a CUDA device; here
+    there is none to launch on)."""
+    assert not procedural.k7_exact_range(pos, 9, 1) < procedural.K7_EXACT_LIMIT
+    with pytest.raises(ValueError, match="exact range"):
+        procedural.block_grid_packed(pos, 9, 1, device="cuda")
+    with pytest.raises(ValueError, match="exact range"):
+        procedural.block_grid(pos, 4, 1, device="cuda")
+
+
 @pytest.fixture
 def fast_jax_gen(monkeypatch):
     """JAX's generator evaluated op by op in one x-slab."""

@@ -189,6 +189,15 @@ def test_gather_trees_needs_the_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_kernel_steps_needs_the_card(monkeypatch, capsys):
+    """The cross-tree K7/K3 timer, like K1's, exits 1 without a card."""
+    from octree_tracer_tpu_torch.probes import kernel_steps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_steps.main(["no_such_tree"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 _PAYLOAD = """
 import os, time
 import marker
