@@ -35,8 +35,11 @@ against the NumPy oracle on a subsample, and drives the main paths:
 Every phase prints a line; any failure raises and exits non-zero. Without a
 CUDA device it exits 1 and prints no result. The line before the last is a
 JSON object with each kernel's launches on the Session path (and on the
-frame path), its largest difference from the plain version and both times;
-the last line is ``{"ok": true, "device": {...}}``. Each kernel's
+frame path), its largest difference from the plain version and both times:
+``ms`` is the wrapper's calls back to back, host included (K1-K7), or the
+probe line's device time behind a spin (K8, K9, whose host enqueue outlasts
+the kernel); K3, K4 and K5 add ``alone_ms``, the kernel alone behind a spin
+as ``probes/kernel_steps.py`` times it; the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``bound_ms`` is the least time the card could take for its work in this run
 (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger; K1's
 counts each 32-byte pool row that this run's rays touch once, as their visit
@@ -279,11 +282,11 @@ def run(dev: torch.device) -> int:
         torch.cuda.set_sync_debug_mode(0)
     report["raygen"].update(
         max_abs_err=0.0,
-        # The kernel alone (its calls queued behind a spin twice their
-        # enqueue time), and the wrapper's calls back to back, host
-        # included, as the Session's.
-        ms=device_ms(lambda: camera.generate_rays_device(ci, W, H, dev), 50),
-        wrapper_ms=cuda_ms(lambda: camera.generate_rays_device(ci, W, H, dev), 50, 5),
+        # The wrapper's calls back to back, host included, as the Session's
+        # (ms, as for every kernel), and the kernel alone (its calls queued
+        # behind a spin twice their enqueue time).
+        ms=cuda_ms(lambda: camera.generate_rays_device(ci, W, H, dev), 50, 5),
+        alone_ms=device_ms(lambda: camera.generate_rays_device(ci, W, H, dev), 50),
         plain_ms=cuda_ms(lambda: camera.generate_rays_device_plain(ci_t, W, H), 5),
         library_ms=None,
         **bound(W * H * 12 + 12 + 64),  # directions and origin out, the matrix in
@@ -291,8 +294,8 @@ def run(dev: torch.device) -> int:
     r = report["raygen"]
     phase("5 K3", f"equal to plain over {W}x{H} rays and at {tail_w}x{tail_h}; a call "
           f"from a NumPy matrix ran under sync debug mode 'error'; kernel alone "
-          f"{r['ms']:.5f} ms, wrapper {r['wrapper_ms']:.5f} ms, bound {r['bound_ms']:.5f} "
-          f"ms, plain {r['plain_ms']:.3f} ms")
+          f"{r['alone_ms']:.5f} ms, wrapper back to back {r['ms']:.5f} ms, bound "
+          f"{r['bound_ms']:.5f} ms, plain {r['plain_ms']:.3f} ms")
 
     # 6. K1 against its plain version on the full primary wavefront, and
     #    against the NumPy oracle (no table) on a fixed subsample. The frame's
@@ -382,30 +385,85 @@ def run(dev: torch.device) -> int:
           f"{sh_trips} trips over {sh_rows} rows, bound {r['shadow_bound_ms']:.4f} ms; "
           f"plain {plain_s * 1e3:.1f} / {sh_plain_s * 1e3:.1f} ms")
 
-    # 7. K4 against its plain version on the frame's own inputs.
+    # 7. K4 against its plain version on the frame's own inputs, in every
+    #    view (shaded, show_steps, gamma 1.0; show_hits in phase 9), u8 and
+    #    f32; on 1917x37 rays, on views one element off 16 bytes and on
+    #    views whose inputs start at different elements, each also equal to
+    #    the full call's pixels. The u8 encode is a search of thresholds
+    #    that the powf encode defines: it must give the powf encode's byte
+    #    on every f32 in [0, 1], and the powf encode must not decrease
+    #    between neighbouring values there.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    differ, decrease, compared = tracer.encode_check(dev)
+    check_s = time.perf_counter() - t0
+    check(compared == tracer.ENCODE_CHECK_VALUES, f"encode check compared {compared} f32 "
+          f"values, not the {tracer.ENCODE_CHECK_VALUES} in [0, 1]")
+    check(differ == 0 and decrease == 0, f"encode search differs from the powf encode on "
+          f"{differ} f32 values in [0, 1]; the powf encode decreases {decrease} times")
+    phase("7 K4", f"threshold encode equal to the powf encode on the {compared:,} f32 "
+          f"values the check counted (every one in [0, 1]), the powf encode "
+          f"non-decreasing there ({check_s:.2f} s)")
     shadow_hit = sh_k
-    img_k = tracer.shade(res_k, shadow_hit)
-    img_p = tracer.shade_plain(res_k, shadow_hit)
-    img_err = float((img_k - img_p).abs().max())
-    u8_k = tracer.shade(res_k, shadow_hit, u8=True)
-    u8_p = tracer.encode_u8_plain(img_p)
-    u8_diff = (u8_k.int() - u8_p.int()).abs()
-    u8_frac = float((u8_diff == 0).float().mean())
-    check(img_err <= 1e-6, f"shade kernel differs from plain by {img_err}")
-    check(u8_frac >= 0.999 and int(u8_diff.max()) <= 1,
-          f"u8 encode: {u8_frac:.5f} equal, max diff {int(u8_diff.max())}")
+
+    def shade_check(r, sh, what, **kw):
+        img_k = tracer.shade(r, sh, **kw)
+        img_p = tracer.shade_plain(r, sh, **kw)
+        err = float((img_k - img_p).abs().max())
+        u8_k = tracer.shade(r, sh, u8=True, **kw)
+        u8_diff = (u8_k.int() - tracer.encode_u8_plain(img_p).int()).abs()
+        frac, worst = float((u8_diff == 0).float().mean()), int(u8_diff.max())
+        check(err <= 1e-6, f"shade {what}: f32 differs from plain by {err}")
+        check(frac >= 0.999 and worst <= 1,
+              f"shade {what}: u8 equal on {frac:.5f}, max diff {worst}")
+        return img_k, u8_k, err, frac, worst
+
+    img_k, u8_k, img_err, u8_frac, u8_worst = shade_check(res_k, shadow_hit, "frame")
+    errs = [shade_check(res_k, shadow_hit, "show_steps", show_steps=True)[2],
+            shade_check(res_k, shadow_hit, "gamma 1.0", gamma=1.0)[2],
+            shade_check(res_k, None, "no shadows")[2]]
+    small = 1917 * 37
+    for what, first in (("1917x37", 0), ("one element off 16 bytes", 1),
+                        ("inputs off by different elements", None)):
+        # Field k of the last view starts k elements in; the shadow mask 2.
+        starts = [k if first is None else first for k in range(len(res_k) + 1)]
+        r_v = tracer.TraceResult(*(t[a:a + small] for t, a in zip(res_k, starts)))
+        sh_v = shadow_hit[starts[2]:starts[2] + small]
+        f_v, b_v, err, _, _ = shade_check(r_v, sh_v, what)
+        errs.append(err)
+        if first is not None:
+            check(torch.equal(f_v, img_k[first:first + small])
+                  and torch.equal(b_v, u8_k[first:first + small]),
+                  f"shade {what}: differs from the full call's pixels")
+    lit = res_k.hit & ~res_k.forced
     report["shade_encode"].update(
-        max_abs_err=img_err,
+        encode_values_checked=compared, encode_differ=differ, encode_decreases=decrease,
+        max_abs_err=max([img_err] + errs),
         ms=cuda_ms(lambda: tracer.shade(res_k, shadow_hit, u8=True), 20),
+        alone_ms=device_ms(lambda: tracer.shade(res_k, shadow_hit, u8=True), 50),
+        f32_alone_ms=device_ms(lambda: tracer.shade(res_k, shadow_hit), 50),
         plain_ms=cuda_ms(lambda: tracer.encode_u8_plain(
             tracer.shade_plain(res_k, shadow_hit)), 5),
-        library_ms=None,
-        **bound(n * 26),  # hit, forced, word, normal, steps, shadow in; u8 RGB out
+        library_ms=None, lit=int(lit.sum()),
+        # Two masks in and the u8 frame out, a ray; each 32-byte sector of
+        # shadow_hit, word and normal that holds a lit pixel's entry
+        # (tracer.k4_bytes).
+        # The earlier count, 26 bytes a ray (every input, steps included),
+        # stays beside it.
+        **bound(tracer.k4_bytes(lit, 3)),
+        f32_bound_ms=bound(tracer.k4_bytes(lit, 12))["bound_ms"],
+        all_rays_bound_ms=bound(n * 26)["bound_ms"],
     )
+    r = report["shade_encode"]
     phase("7 K4", f"f32 max |kernel - plain| {img_err:.3g}; u8 equal on "
-          f"{u8_frac:.6f} of channels, max diff {int(u8_diff.max())}; kernel "
-          f"{report['shade_encode']['ms']:.3f} ms (u8), plain "
-          f"{report['shade_encode']['plain_ms']:.3f} ms")
+          f"{u8_frac:.6f} of channels, max diff {u8_worst}; show_steps, gamma 1.0 and "
+          f"no-shadow views, 1917x37 rays, a view one element off 16 bytes and inputs "
+          f"off by different elements within the same rules (f32 max {max(errs):.3g}), "
+          f"the cut views equal to the full call's pixels; {r['lit']} lit pixels; kernel "
+          f"alone {r['alone_ms']:.5f} ms (u8), {r['f32_alone_ms']:.5f} ms (f32); wrapper "
+          f"back to back {r['ms']:.5f} ms (u8); bound {r['bound_ms']:.5f} ms (u8; f32 "
+          f"{r['f32_bound_ms']:.5f}; the earlier 26 B a ray "
+          f"{r['all_rays_bound_ms']:.5f}); plain {r['plain_ms']:.3f} ms")
 
     # 8. The main path once, counted: table build, raygen, shadowed frame.
     kernels.reset_launches()
@@ -469,6 +527,7 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> Non
     from octree_tracer_tpu_torch import kernels, scenes, state
     from octree_tracer_tpu_torch.adaptive import feedback
     from octree_tracer_tpu_torch.app.session import Session
+    from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
     from octree_tracer_tpu_torch.render import tracer
 
     n_words = words.shape[0]
@@ -514,30 +573,76 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> Non
     img_p = tracer.shade_plain(res_k, hits_visits=counts)
     hits_err = float((img_k - img_p).abs().max())
     check(hits_err <= 1e-6, f"show_hits view differs from plain by {hits_err}")
+    hits_u8 = (tracer.shade(res_k, hits_visits=counts, u8=True).int()
+               - tracer.encode_u8_plain(img_p).int()).abs()
+    hits_frac = float((hits_u8 == 0).float().mean())
+    check(hits_frac >= 0.999 and int(hits_u8.max()) <= 1,
+          f"show_hits u8: {hits_frac:.5f} equal, max diff {int(hits_u8.max())}")
     report["shade_encode"].update(show_hits_err=hits_err)
     phase("9 K1 visits", f"counts and flags equal to plain on {n_words} slots "
           f"({int((counts > 0).sum())} marked, {int(counts.sum())} marks), shadow-mode "
           f"counts equal ({int(sh_k.sum())} marks); K1 unmarked {t_plain:.4f} ms, counts "
           f"{t_counts:.4f} ms, flags {t_flags:.4f} ms, shadow counts {t_sh_counts:.4f} ms; "
-          f"K4 show_hits f32 max |kernel - plain| {hits_err:.3g}")
+          f"K4 show_hits f32 max |kernel - plain| {hits_err:.3g}, u8 equal on "
+          f"{hits_frac:.6f}")
 
-    # 10. K5 and K6 against their plain versions on phase 9's visits.
-    for sub_cap, unsub_cap, offset in ((65536, 65536, 123457), (1024, 1024, 777)):
-        args = (words, counts, n_words, sub_cap, unsub_cap, offset)
+    # 10. K5 and K6 against their plain versions on phase 9's visits. K5
+    #     exactly equal at phase 10's two shapes (caps 65536, the Session's,
+    #     and an overflow of caps 1024), at every offset residue mod 4 and at
+    #     n - 1, for caps of 0, for node_len < n, for n under one tile, for n
+    #     no multiple of 4 and on views off 16 bytes (scalar loads).
+    def select_check(w, v, node_len, sub_cap, unsub_cap, offset, what):
+        args = (w, v, node_len, sub_cap, unsub_cap, offset)
         out_k = feedback.select_candidates_packed(*args)
         out_p = feedback.select_candidates_plain(*args)
-        err = int((out_k - out_p).abs().max())
-        check(err == 0, f"select_candidates caps {sub_cap}: differs by {err}")
+        check(torch.equal(out_k, out_p), f"select_candidates {what} (caps {sub_cap}/"
+              f"{unsub_cap}, offset {offset}, n {w.shape[0]}, node_len {node_len}) differs "
+              f"from plain on {int((out_k != out_p).sum())} entries")
+        return out_k
+
+    for sub_cap, unsub_cap, offset in ((65536, 65536, 123457), (1024, 1024, 777)):
+        args = (words, counts, n_words, sub_cap, unsub_cap, offset)
+        out_k = select_check(*args, "phase shape")
         over = int(out_k[0]) > sub_cap or int(out_k[1]) > unsub_cap
+        alone_ms = device_ms(lambda: feedback.select_candidates_packed(*args), 50)
         ms_k = cuda_ms(lambda: feedback.select_candidates_packed(*args), 20)
         ms_p = cuda_ms(lambda: feedback.select_candidates_plain(*args), 5)
         if sub_cap == 65536:
             report["select_candidates"].update(
-                max_abs_err=float(err), ms=ms_k, plain_ms=ms_p, library_ms=None,
-                **bound(n_words * 8 + (2 + sub_cap + unsub_cap) * 4))
+                max_abs_err=0.0, ms=ms_k, alone_ms=alone_ms, plain_ms=ms_p,
+                library_ms=None,
+                **bound(feedback.select_bytes(n_words, sub_cap, unsub_cap)))
         phase("10 K5", f"caps {sub_cap}/{unsub_cap} offset {offset}: equal; sub_n "
-              f"{int(out_k[0])}, unsub_n {int(out_k[1])}, overflow {over}; kernel "
-              f"{ms_k:.3f} ms, plain {ms_p:.3f} ms")
+              f"{int(out_k[0])}, unsub_n {int(out_k[1])}, overflow {over}; kernel alone "
+              f"{alone_ms:.5f} ms, wrapper back to back {ms_k:.5f} ms, plain {ms_p:.3f} ms")
+    r = report["select_candidates"]
+    phase("10 K5", f"bound {r['bound_ms']:.5f} ms ({n_words} slots, caps 65536/65536)")
+    edges = 0
+    tile = feedback.SELECT_TILE
+    for offset in (0, 1, 2, 3, 4097, 123458, 123459, 123460, n_words - 1):
+        select_check(words, counts, n_words, 65536, 65536, offset, "offset")
+        edges += 1
+    for caps in ((0, 0), (0, 65536), (65536, 0), (7, 3)):
+        select_check(words, counts, n_words, *caps, 5, "caps")
+        edges += 1
+    select_check(words, counts, n_words // 3 + 1, 65536, 65536, 777, "node_len < n")
+    small_n = (1000, tile - 1, tile, tile + 1, 3 * tile + 5, 1_000_003)
+    for m in small_n:
+        for offset in (0, m // 2 + 1, m - 1):
+            select_check(words[:m], counts[:m], m, 64, 64, offset, "short pool")
+            select_check(words[:m], counts[:m], m - m // 4, 3, 3, offset, "short pool")
+            edges += 2
+    for lo in (1, 2, 3):
+        m = 2 * tile + 7
+        select_check(words[lo:lo + m], counts[lo:lo + m], m, 500, 500, 11,
+                     "view off 16 bytes")
+        select_check(words[lo:lo + m], counts[4:4 + m], m, 500, 500, 0,
+                     "views off 16 bytes by different elements")
+        edges += 2
+    phase("10 K5", f"{edges + 1} edge cases equal to plain: offsets 0-3, 4097, "
+          f"123458-123460 and n - 1; caps 0/0, 0/65536, 65536/0 and 7/3; node_len "
+          f"n/3 + 1; pools of {', '.join(map(str, small_n))} slots (one tile is {tile}), "
+          f"each from three offsets and with node_len < n; views off 16 bytes")
     passes = DEPTH + 1
     closed_k = feedback.propagate_visits(words, flags, passes)
     closed_p = feedback.propagate_visits_plain(words, flags, passes)

@@ -31,8 +31,8 @@ from ..state import u32_to_device, widen_u32
 MAX_SUBDIVISIONS_PER_FRAME = 1024000
 MAX_UNSUBDIVISIONS_PER_FRAME = 1024000
 
-# Slots per block of K5 (kChunk in csrc/select_candidates.cu).
-SELECT_CHUNK = 2048
+# Slots per tile of K5 (kTile in csrc/select_candidates.cu).
+SELECT_TILE = 4096
 
 _I32 = torch.int32
 
@@ -46,6 +46,12 @@ def _masks(words: torch.Tensor, visits: torch.Tensor, node_len: int):
     sub = valid & (counter >= 4) & (payload > VOXEL_OFFSET)
     unsub = valid & (counter == 0) & (payload < VOXEL_OFFSET)
     return sub, unsub
+
+
+def select_bytes(n: int, sub_cap: int, unsub_cap: int) -> int:
+    """Bytes K5 must move: each slot's word and visits read once, the
+    packed output written once."""
+    return 8 * n + 4 * (2 + sub_cap + unsub_cap)
 
 
 def select_candidates_plain(words, visits, node_len: int,
@@ -91,12 +97,18 @@ def select_candidates_packed(words, visits, node_len: int,
     if not kernels.uses_kernel(dev):
         return select_candidates_plain(words, visits, node_len, sub_cap,
                                        unsub_cap, offset)
-    out = torch.empty(2 + sub_cap + unsub_cap, dtype=_I32, device=dev)
-    scratch = torch.empty(2 * -(-n // SELECT_CHUNK), dtype=_I32, device=dev)
+    # One buffer, set to all ones by the kernel's memset: the scan's status
+    # words (8 bytes an item) and ticket (8 with padding), then the output,
+    # which the memset fills with -1.
+    n_items = -(-n // SELECT_TILE) + 1
+    head = 2 * n_items + 2
+    buf = torch.empty(head + 2 + sub_cap + unsub_cap, dtype=_I32, device=dev)
+    out = buf[head:]
+    vec = words.data_ptr() % 16 == 0 and visits.data_ptr() % 16 == 0
     kernels.launch("select_candidates", "ot_select_candidates", dev,
                    kernels.ptr(words), kernels.ptr(visits), n, int(node_len),
-                   int(offset) % n, sub_cap, unsub_cap, kernels.ptr(scratch),
-                   kernels.ptr(out))
+                   int(offset) % n, sub_cap, unsub_cap, kernels.ptr(buf),
+                   4 * buf.numel(), kernels.ptr(out), int(vec))
     return out
 
 

@@ -50,8 +50,10 @@ _SIGNATURES = {
                         _I, _I] + [_P] * 3,
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
     "ot_raygen": [_F] * 16 + [_I, _I, _P, _P, _P],
-    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 5,
-    "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _P],
+    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 4 + [_I, _P],
+    "ot_encode_table": [_P, _F, _P],
+    "ot_encode_check": [_P, _P, _P],
+    "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _I64, _P, _I],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],
     "ot_block_grid": [_F, _F, _F, _F, _I, _P, _P],
     "ot_gather_rows": [_P, _P, _I64, _P, _I, _I, _I64, _I64, _I, _I64, _I, _P],
@@ -166,14 +168,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args,
+           counted: bool = True) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; raise if
-    the launch failed, else count one launch of ``kernel``."""
+    the launch failed, else count one launch of ``kernel`` (unless
+    ``counted`` is false: a helper of the kernel, such as K4's table)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(library(), entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    if counted:
+        LAUNCHES[kernel] += 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -499,6 +499,71 @@ def encode_u8_plain(img: torch.Tensor) -> torch.Tensor:
     return (img.clamp(0.0, 1.0) ** (1.0 / 2.2) * 255.0).to(torch.uint8)
 
 
+_ONE_BITS = 0x3F800000  # 1.0f
+# K4's per-gamma table (csrc/shade_encode.cu): 256 encode thresholds, the
+# gamma of a sky channel (0.2), of 1 and of 0 and their bytes, then one
+# bucket a 64th of an octave from 2^-18 to 1.
+_SHARED = (0.2, 1.0, 0.0)
+_BUCKET0, _BUCKET_SHIFT, _BUCKET_BASE = 262, 17, (127 - 18) << 6
+ENCODE_TABLE_SIZE = _BUCKET0 + (_ONE_BITS >> _BUCKET_SHIFT) - _BUCKET_BASE + 1
+# Every f32 in [0, 1]: the bit patterns 0 .. 1.0f.
+ENCODE_CHECK_VALUES = _ONE_BITS + 1
+
+
+def encode_table_plain(gamma=2.2, device="cpu") -> torch.Tensor:
+    """Plain version of K4's table (``encode_table``), f32[ENCODE_TABLE_SIZE]:
+    entry k < 256 the least f32 in [0, 1] whose ``encode_u8_plain`` byte is
+    k or more (entry 0 is 0), by bisection over the bit patterns, which for
+    non-negative floats are ordered as the values; then the gamma of a sky
+    channel, of 1 and of 0, their bytes, and each bucket's encode at its
+    lowest value. If the encode is monotone, ``encode_search_plain`` over
+    the table is the encode."""
+    k = torch.arange(256, device=device)
+    lo = torch.zeros(256, dtype=torch.int64, device=device)
+    hi = torch.full((256,), _ONE_BITS, dtype=torch.int64, device=device)
+    for _ in range(31):
+        mid = (lo + hi) // 2
+        ge = encode_u8_plain(mid.to(torch.int32).view(_F32)).long() >= k
+        hi, lo = torch.where(ge, mid, hi), torch.where(ge, lo, mid + 1)
+    t = lo.to(torch.int32).view(_F32).clone()
+    t[0] = 0.0
+    shared = torch.tensor(_SHARED, dtype=_F32, device=device).clamp(0.0, 1.0) ** gamma
+    starts = (torch.arange(ENCODE_TABLE_SIZE - _BUCKET0, device=device) + _BUCKET_BASE
+              ) << _BUCKET_SHIFT
+    buckets = encode_u8_plain(starts.to(torch.int32).view(_F32))
+    return torch.cat([t, shared, encode_u8_plain(shared).to(_F32), buckets.to(_F32)])
+
+
+def encode_search_plain(img: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The u8 encode as K4 computes it: from the count of thresholds at the
+    start of the value's bucket, on through the thresholds at or below
+    ``clip(img, 0, 1)``."""
+    x = img.clamp(0.0, 1.0).reshape(-1)
+    b = (x.view(torch.int32).long() >> _BUCKET_SHIFT) - _BUCKET_BASE
+    start = table[_BUCKET0 + b.clamp(0, table.numel() - _BUCKET0 - 1)].long()
+    k = torch.where((x > 0) & (b >= 0), start, 0)  # NaN and values under 2^-18: 0
+    while True:
+        up = (k < 255) & (x >= table[(k + 1).clamp_max(255)])
+        if not bool(up.any()):
+            return k.to(torch.uint8).reshape(img.shape)
+        k = k + up.long()
+
+
+def k4_bytes(lit: torch.Tensor, out_bytes: int = 3, shadow: bool = True) -> int:
+    """Bytes K4 must move for a frame: 2 a ray of masks (hit, forced) and
+    ``out_bytes`` a ray out (3 for the u8 frame, 12 for f32), plus the
+    32-byte sectors of ``shadow_hit`` (1 byte a ray, when ``shadow``),
+    ``word`` (4) and ``normal`` (12) that hold an entry of a pixel in
+    ``lit`` (a hit that is not forced: the kernel reads these three only
+    there), each counted once; every array starts on a sector."""
+    n = lit.numel()
+    i = torch.nonzero(lit.reshape(-1)).flatten().to(torch.int64).cpu()
+    shadow_sectors = torch.unique(i >> 5).numel() if shadow else 0
+    word_sectors = torch.unique(i >> 3).numel()
+    normal_sectors = torch.unique(torch.cat([(12 * i) >> 5, (12 * i + 11) >> 5])).numel()
+    return n * (2 + out_bytes) + 32 * (shadow_sectors + word_sectors + normal_sectors)
+
+
 def shade(result: TraceResult, shadow_hit=None, show_steps=False,
           sun_dir=DEFAULT_SUN, gamma=2.2, u8=False,
           hits_visits=None) -> torch.Tensor:
@@ -522,6 +587,7 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
     if not kernels.uses_kernel(dev):
         img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma, hits_visits)
         return encode_u8_plain(img) if u8 else img
+    mode = 1 if show_steps else 2 if hits_visits is not None else 0
     out = torch.empty((n, 3), dtype=torch.uint8 if u8 else _F32, device=dev)
     s = _neg_sun(sun_dir)
     kernels.launch(
@@ -529,11 +595,45 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
         kernels.ptr(result.hit), kernels.ptr(result.forced),
         kernels.ptr(result.word), kernels.ptr(result.normal),
         kernels.ptr(result.steps), kernels.ptr(shadow_hit), n,
-        float(s[0]), float(s[1]), float(s[2]), int(show_steps), gamma,
+        float(s[0]), float(s[1]), float(s[2]), mode, gamma,
         kernels.ptr(result.index), kernels.ptr(hits_visits),
-        None if u8 else kernels.ptr(out), kernels.ptr(out) if u8 else None,
+        kernels.ptr(encode_table(dev, gamma)), kernels.ptr(out), int(u8),
     )
     return out
+
+
+_ENCODE_TABLES: dict = {}
+
+
+def encode_table(device: torch.device, gamma: float) -> torch.Tensor:
+    """K4's table for ``gamma`` on ``device`` (``encode_table_plain`` says
+    what it holds), computed on the card by the kernel's own ``powf`` at
+    first use, then kept; ``encode_check`` verifies that the encode from it
+    gives the ``powf`` encode's byte on every f32 in [0, 1]."""
+    key = (device, float(gamma))
+    t = _ENCODE_TABLES.get(key)
+    if t is None:
+        t = torch.empty(ENCODE_TABLE_SIZE, dtype=_F32, device=device)
+        kernels.launch("shade_encode", "ot_encode_table", device, kernels.ptr(t), gamma,
+                       counted=False)
+        # Once a gamma: a later call on another stream reads a finished table.
+        torch.cuda.current_stream(device).synchronize()
+        _ENCODE_TABLES[key] = t
+    return t
+
+
+def encode_check(device: torch.device) -> tuple[int, int, int]:
+    """Over every f32 in [0, 1] (one launch): the number of values on which
+    K4's threshold search gives another byte than the ``powf`` encode, the
+    number of neighbouring values where the ``powf`` encode decreases, and
+    the number of values the launch compared, counted by the kernel. The
+    search is exact when the first two are 0 and the third is
+    ``ENCODE_CHECK_VALUES``."""
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
+    kernels.launch("shade_encode", "ot_encode_check", device,
+                   kernels.ptr(encode_table(device, 2.2)), kernels.ptr(counts), counted=False)
+    differ, decrease, compared = counts.tolist()
+    return differ, decrease, compared
 
 
 def shadow_rays(result: TraceResult, sun_dir=DEFAULT_SUN, cull=True):

@@ -153,3 +153,33 @@ def test_apply_patches_equals_jax():
     assert wrapped[-1] != words[-1]
     # the frame's snapshot is untouched
     np.testing.assert_array_equal(state.to_numpy_u32(dev), words)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4095, 4096, 4097, 3 * 4096 + 5])
+@pytest.mark.parametrize("residue", [0, 1, 2, 3])
+def test_select_candidates_edges_equal_jax(n, residue):
+    """The shapes at K5's edges (4096-slot tiles, 16-byte loads): pools
+    under one tile, of one tile and past it, of no multiple of 4; offsets
+    of every residue mod 4, at n - 1 and beside a tile edge; caps of 0,
+    caps the lists overflow and caps they fit in. The port equals JAX."""
+    words, visits = zip(*(_pool(seed) for seed in (3, 4, 5)))
+    words, visits = np.concatenate(words)[:n], np.concatenate(visits)[:n]
+    offsets = {o for o in (residue, n - 1 - residue, 4096 + residue, n // 2 + residue)
+               if 0 <= o < n}
+    caps = [(0, 0), (5, 3), (n, n)]
+    for k, offset in enumerate(sorted(offsets)):
+        sub_cap, unsub_cap = caps[k % 3]
+        got, want = _both(words, visits, n - n // 5, sub_cap, unsub_cap, offset)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_select_bytes():
+    """K5's bound counts 8 bytes a slot and the packed output once."""
+    assert feedback.select_bytes(10, 0, 0) == 88
+    assert feedback.select_bytes(7_900_000, 65536, 65536) == 8 * 7_900_000 + 4 * 131074
+    words, visits = _pool(5)
+    out = feedback.select_candidates_packed(
+        state.u32_to_device(words, "cpu"), torch.from_numpy(visits), words.shape[0],
+        sub_cap=9, unsub_cap=4)
+    assert feedback.select_bytes(words.shape[0], 9, 4) == words.nbytes + visits.nbytes \
+        + out.numel() * 4

@@ -124,3 +124,105 @@ def test_render_frame_shadow_pass_is_trace_shadow(misc_bool):
     gamma = 1.0 if misc_bool else 2.2
     np.testing.assert_array_equal(img.numpy().reshape(-1, 3),
                                   ttracer.shade(res, sh, gamma=gamma).numpy())
+
+
+def test_k4_bytes_counts_lit_sectors():
+    """K4's bound: 2 bytes of masks (hit, forced) and the output a ray, plus
+    each 32-byte sector of shadow_hit (32 rays a sector), word (8 rays a
+    sector) and normal (12 bytes a ray, so a ray's entry may straddle two
+    sectors) that holds a lit pixel's entry, once; no shadow_hit sectors
+    for a frame without shadows."""
+    n = 64
+    none = torch.zeros(n, dtype=torch.bool)
+    assert ttracer.k4_bytes(none) == n * 5
+    assert ttracer.k4_bytes(none, 12) == n * 14
+    assert ttracer.k4_bytes(none, shadow=False) == n * 5
+    every = torch.ones(n, dtype=torch.bool)
+    assert ttracer.k4_bytes(every) == n * 5 + n + 4 * n + 12 * n  # whole arrays
+    assert ttracer.k4_bytes(every, shadow=False) == n * 5 + 4 * n + 12 * n
+    one = none.clone()
+    one[0] = True  # shadow and word sector 0; normal bytes 0-11 in sector 0
+    assert ttracer.k4_bytes(one) == n * 5 + 32 + 32 + 32
+    assert ttracer.k4_bytes(one, shadow=False) == n * 5 + 32 + 32
+    two = none.clone()
+    two[2] = True  # normal bytes 24-35: sectors 0 and 1
+    assert ttracer.k4_bytes(two) == n * 5 + 32 + 32 + 64
+    pair = none.clone()
+    pair[[2, 3]] = True  # same shadow and word sector; normal bytes 24-47: 0, 1
+    assert ttracer.k4_bytes(pair) == n * 5 + 32 + 32 + 64
+    apart = none.clone()
+    apart[[0, 8, 63]] = True  # shadow sectors 0, 1; word 0, 1, 7; normal 0, 3, 23
+    assert ttracer.k4_bytes(apart) == n * 5 + 2 * 32 + 3 * 32 + 3 * 32
+    wide = torch.zeros(256, dtype=torch.bool)
+    wide[[5, 40, 200]] = True  # shadow sectors 0, 1, 6
+    assert ttracer.k4_bytes(wide) - ttracer.k4_bytes(wide, shadow=False) == 3 * 32
+    image = every.reshape(8, 8)
+    assert ttracer.k4_bytes(image) == ttracer.k4_bytes(every)
+
+
+@functools.lru_cache(maxsize=None)
+def _table():
+    return ttracer.encode_table_plain()
+
+
+def _encode_samples():
+    """f32 values in [0, 1] where the table encode can fail: every
+    threshold and bucket start with their neighbours two bit patterns
+    either side, the ends, and 2^20 random bit patterns."""
+    t = _table()
+    edges = torch.cat([t[1:256].view(torch.int32).long(),
+                       (torch.arange(ttracer.ENCODE_TABLE_SIZE - 262) + (109 << 6)) << 17])
+    near = (edges[:, None] + torch.arange(-2, 3)[None, :]).flatten()
+    rng = np.random.default_rng(7)
+    bits = np.concatenate([near.numpy(), [0, 1, 0x3F800000, 0x3F7FFFFF],
+                           rng.integers(0, 0x3F800001, 1 << 20)])
+    bits = np.clip(bits, 0, 0x3F800000).astype(np.int32)
+    return torch.from_numpy(bits).view(torch.float32)
+
+
+def test_encode_table_layout():
+    """Entry k < 256 is the least value the encode maps to k or more (the
+    value one bit pattern below maps below k), sorted and under 1; then the
+    shared values and bytes for the gamma; then each bucket's encode at its
+    start, non-decreasing, the last one 1.0's."""
+    t = _table()
+    assert t.dtype == torch.float32 and t.shape == (ttracer.ENCODE_TABLE_SIZE,)
+    assert ttracer.ENCODE_TABLE_SIZE == 262 + 1153
+    th = t[:256]
+    assert float(th[0]) == 0.0 and bool((th[1:] > th[:-1]).all()) and float(th[255]) < 1.0
+    k = torch.arange(1, 256)
+    below = (th.view(torch.int32)[1:] - 1).view(torch.float32)
+    assert bool((ttracer.encode_u8_plain(th[1:]).long() >= k).all())
+    assert bool((ttracer.encode_u8_plain(below).long() < k).all())
+    assert float(th[1]) >= 2.0 ** -18  # below the first bucket everything encodes to 0
+    shared = torch.tensor([0.2, 1.0, 0.0]) ** 2.2
+    assert torch.equal(t[256:259], shared)
+    assert torch.equal(t[259:262], ttracer.encode_u8_plain(shared).float())
+    buckets = t[262:]
+    assert bool((buckets[1:] >= buckets[:-1]).all()) and float(buckets[-1]) == 255.0
+    linear = ttracer.encode_table_plain(1.0)
+    assert torch.equal(linear[:256], th) and torch.equal(linear[262:], buckets)
+    assert linear[256:262].tolist() == [np.float32(0.2), 1.0, 0.0, 122.0, 255.0, 0.0]
+
+
+def test_encode_search_equals_the_encode():
+    """K4's table encode gives the port's ``encode_u8_plain`` byte on every
+    sampled f32 in [0, 1] (thresholds, bucket starts and their neighbours,
+    random values), and JAX ``encode_u8``'s by the u8 rule (at least 99.9%
+    equal, never more than 1 apart: XLA's CPU ``pow`` rounds a few
+    knife-edge values the other way); values past [0, 1] clip."""
+    c = _encode_samples()
+    got = ttracer.encode_search_plain(c, _table()).numpy()
+    np.testing.assert_array_equal(got, ttracer.encode_u8_plain(c).numpy())
+    want = np.asarray(jtracer.encode_u8(jnp.asarray(c.numpy())))
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert (diff == 0).mean() >= 0.999 and diff.max() <= 1
+    out = torch.tensor([-1.0, -0.0, 2.0, float("inf"), float("nan")])
+    assert ttracer.encode_search_plain(out, _table()).tolist() == [0, 0, 255, 255, 0]
+
+
+def test_encode_search_keeps_image_shape():
+    img = torch.rand(5, 7, 3, generator=torch.Generator().manual_seed(3))
+    got = ttracer.encode_search_plain(img, _table())
+    assert got.dtype == torch.uint8 and got.shape == (5, 7, 3)
+    assert torch.equal(got, ttracer.encode_u8_plain(img))
