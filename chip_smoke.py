@@ -6,6 +6,10 @@ Builds the port's nine CUDA kernels from ``octree_tracer_tpu_torch/csrc``
 plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
 
+- the tables (4): K2 equal to its plain version at every level 0-9 on the
+  deep10 pool and on pools whose pointers run past their end
+  (``scenes.malformed_pools``), and K1 and K4's hit-counter view equal to
+  theirs on those pools;
 - the frame: the bench's deep10 scene at 1920x1080 with shadows and the
   combined level-7 warp+skip table (phases 3-8): K1's tiled call from one
   stride-0 origin against the flat contiguous call and the plain version,
@@ -38,10 +42,13 @@ JSON object with each kernel's launches on the Session path (and on the
 frame path), its largest difference from the plain version and both times:
 ``ms`` is the wrapper's calls back to back, host included (K1-K7), or the
 probe line's device time behind a spin (K8, K9, whose host enqueue outlasts
-the kernel); K3, K4 and K5 add ``alone_ms``, the kernel alone behind a spin
-as ``probes/kernel_steps.py`` times it; the last line is ``{"ok": true, "device": {...}}``. Each kernel's
-``bound_ms`` is the least time the card could take for its work in this run
-(bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s, the larger; K1's
+the kernel); K2, K3, K4 and K5 add ``alone_ms``, the kernel alone behind a
+spin as ``probes/kernel_steps.py`` times it; the last line is
+``{"ok": true, "device": {...}}``. Each kernel's ``bound_ms`` is the least
+time the card could take for its work in this run (bytes over 3.35 TB/s,
+or f32 operations over 67 TFLOP/s, the larger; K2's counts each 32-byte
+pool sector its descents read once, ``tracer.k2_bytes``, with the outputs
+alone beside it; K1's
 counts each 32-byte pool row that this run's rays touch once, as their visit
 counts show, K6's every pass, K7's the operations its grid needs with the
 noise's permutations and gradients from one table and the terms of x and z
@@ -197,6 +204,64 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def malformed_trace_check(dev, pools: dict) -> str:
+    """K1 against its plain version on pools whose pointers run past their
+    end, with no table and with the combined level-3 table, from the bench
+    camera and from inside the root cube: every primary output, counted
+    and flagged visits, and the shadow mode's hits and counts, exact; K4's
+    hit-counter view on the result within 1e-6."""
+    from octree_tracer_tpu_torch.render import camera, skip, tracer
+
+    res_px = 96
+    cams = {"bench": (np.array([0.4, 0.6, -2.2], np.float32),
+                      np.array([-0.2, -0.35, 1.0], np.float32)),
+            "inside": (np.array([-0.35, 0.55, -0.6], np.float32),
+                       np.array([0.3, -0.5, 1.0], np.float32))}
+    hits = past = 0
+    for name, words in pools.items():
+        n_words = words.shape[0]
+        for cam, (pos, look) in cams.items():
+            ci = camera.camera_matrices(pos, look, 70.0, res_px, res_px)[1]
+            origin, dirs = camera.generate_rays_device(ci, res_px, res_px, dev)
+            origins = origin.reshape(1, 3).expand(res_px * res_px, 3)
+            flat = dirs.reshape(-1, 3)
+            for table in (None, skip.build_warp_skip_table(words, 3)):
+                what = f"{name}, {cam} camera, {'no' if table is None else 'combined'} table"
+                marks = {}
+                for flags in (False, True):
+                    v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+                    v_p = torch.zeros_like(v_k)
+                    r_k = tracer.trace(words, origins, dirs, warp_table=table, visits=v_k,
+                                       visit_flags=flags)
+                    r_p = tracer.trace_plain(words, origins, flat, warp_table=table,
+                                             visits=v_p, visit_flags=flags)
+                    check(all(torch.equal(a, b) for a, b in zip(r_k, r_p)),
+                          f"trace differs from trace_plain on {what}")
+                    check(torch.equal(v_k, v_p), f"trace visits (flags {flags}) differ from "
+                          f"trace_plain's on {what}")
+                    marks[flags] = v_k
+                counts = marks[False]
+                sh_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+                sh_p = torch.zeros_like(sh_k)
+                hit_k = tracer.trace_shadow(words, r_k, cull=False, warp_table=table,
+                                            visits=sh_k, image_width=res_px)
+                hit_p = tracer.trace_plain(words, *tracer.shadow_rays(r_k, cull=False),
+                                           warp_table=table, visits=sh_p).hit
+                check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
+                      f"trace_shadow differs from shadow_rays + trace_plain on {what}")
+                # K4's hit-counter view reads each hit's count at its slot,
+                # clamped into the pool.
+                err = float((tracer.shade(r_k, None, hits_visits=counts)
+                             - tracer.shade_plain(r_k, None, hits_visits=counts)).abs().max())
+                check(err <= 1e-6, f"shade show_hits differs from plain by {err} on {what}")
+                hits += int(r_k.hit.sum())
+                past += int((r_k.index >= n_words).sum())
+    return (f"kernel equal to plain on {sorted(pools)} ({res_px}x{res_px} rays, bench and "
+            f"inside cameras, no table and combined L3; primary outputs, counts, flags, "
+            f"shadow hits and counts; K4's show_hits view within 1e-6): {hits} hits, {past} "
+            f"of them at slots past the pool's end")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -237,28 +302,47 @@ def run(dev: torch.device) -> int:
           f"{words_np.nbytes / 2**20:.1f} MiB pool, built in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # 4. K2 against its plain version: exact.
+    # 4. K2 against its plain version, exact: at level 7 (timed, and its
+    #    bound recounted from the pool sectors the descents read), at every
+    #    level from 0 to 9 on the deep10 pool and on the malformed pools
+    #    (pointers past the end, a ragged last row); then K1 against its
+    #    plain version on the malformed pools.
     warp_k, occ_k = tracer.warp_occupancy(words, LEVELS)
     warp_p, occ_p = tracer.warp_occupancy_plain(words, LEVELS)
     check(torch.equal(warp_k, warp_p) and torch.equal(occ_k, occ_p),
           "warp_occupancy kernel differs from its plain version")
+    malformed = {k: state.u32_to_device(v, dev) for k, v in scenes.malformed_pools().items()}
+    k2_cases = 0
+    for lv in range(10):
+        for name, pool in [("deep10", words), *malformed.items()]:
+            got, want = tracer.warp_occupancy(pool, lv), tracer.warp_occupancy_plain(pool, lv)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"warp_occupancy kernel differs from its plain version on {name} at L{lv}")
+            k2_cases += 1
+        del got, want
+    k2_bytes = tracer.k2_bytes(words, LEVELS)
     report["warp_occupancy"].update(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: tracer.warp_occupancy(words, LEVELS), 20),
+        alone_ms=device_ms(lambda: tracer.warp_occupancy(words, LEVELS), 50),
         plain_ms=cuda_ms(lambda: tracer.warp_occupancy_plain(words, LEVELS), 3),
         library_ms=None,
-        # Outputs only (a word and a flag per cell); the pool rows the
-        # descents read are not counted.
-        **bound(8 ** LEVELS * 5),
+        # A warp word and a flag a cell, and each 32-byte pool sector the
+        # descents read, once (tracer.k2_bytes); the outputs alone beside.
+        **bound(k2_bytes), k2_bytes=k2_bytes,
+        outputs_bound_ms=bound(8 ** LEVELS * 5)["bound_ms"],
     )
     t0 = time.perf_counter()
     table = skip.build_warp_skip_table(words, LEVELS)
     torch.cuda.synchronize()
+    r = report["warp_occupancy"]
     phase("4 K2", f"warp words and occupancy equal on {warp_k.numel()} cells; "
-          f"{int(occ_k.sum())} occupied; kernel "
-          f"{report['warp_occupancy']['ms']:.3f} ms, plain "
-          f"{report['warp_occupancy']['plain_ms']:.3f} ms; combined table "
-          f"{table.numel()} words in {time.perf_counter() - t0:.2f} s")
+          f"{int(occ_k.sum())} occupied; equal to plain at every level 0-9 on deep{DEPTH} "
+          f"and {sorted(malformed)} ({k2_cases} cases); kernel alone {r['alone_ms']:.5f} ms, "
+          f"wrapper back to back {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({k2_bytes} "
+          f"bytes; outputs only {r['outputs_bound_ms']:.5f}), plain {r['plain_ms']:.3f} ms; "
+          f"combined table {table.numel()} words in {time.perf_counter() - t0:.2f} s")
+    phase("4 K1", malformed_trace_check(dev, malformed))
 
     # 5. K3 against its plain version on the bench camera, bit for bit, and
     #    on a width that is no multiple of 4 (the scalar tail); one call from

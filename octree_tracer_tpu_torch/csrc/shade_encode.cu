@@ -4,7 +4,9 @@
 // `encode_u8`. Ambient 0.3 + Lambert against the sun, zeroed where the
 // shadow ray hit, 0.2 grey on a miss, red on a forced hit, clip and ^gamma;
 // or the show_steps view steps/64; or the show_hits view (:3153-3159),
-// min(visits[max(index, 0)], 15) / 15 grey on hits and black elsewhere. The
+// min(visits[clamp(index, 0, pool - 1)], 15) / 15 grey on hits and black
+// elsewhere (JAX's gather clamps a slot past the pool's end, which a
+// malformed pool's hit reports). The
 // encode is (clip^(1/2.2) * 255) truncated to u8.
 //
 // What bounds it on the H100: bytes (2 a ray of masks, a lit pixel's
@@ -24,6 +26,8 @@
 //   so sky regions skip their sectors; a lit pixel's three gamma powf calls
 //   are independent.
 // Each value is computed by the same operations as in the plain version.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -59,6 +63,7 @@ struct ShadeArgs {
   float gamma;
   const int32_t* index;       // [n]; read only for show_hits
   const int32_t* visits;      // [pool] for the show_hits view
+  int32_t n_visits;           // pool
   const float* table;         // the table for this gamma
   void* out;                  // f32[n, 3] or u8[n, 3]
 };
@@ -96,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) shade_encode_kernel(const ShadeArgs 
   } else if (kMode == kHits) {
     float g = 0.0f;
     if (a.hit[i]) {  // a forced hit has index -1 and reads slot 0, as JAX's
-      const int32_t c = a.visits[max(a.index[i], 0)];
+      const int32_t c = a.visits[min(max(a.index[i], 0), a.n_visits - 1)];
       g = static_cast<float>(min(c, 15)) / 15.0f;
     }
     f[0] = f[1] = f[2] = gamma_of(g, a.gamma);
@@ -213,14 +218,15 @@ __global__ void __launch_bounds__(kThreads) encode_check_kernel(const float* tab
 }  // namespace
 
 // Writes out as f32[n, 3] or (u8 != 0) u8[n, 3]. mode 0 shades, 1 is the
-// show_steps view, 2 the show_hits view (index and visits). table: from
+// show_steps view, 2 the show_hits view (index and visits of n_visits >= 1
+// entries). table: from
 // ot_encode_table for this gamma. Returns cudaGetLastError().
 extern "C" int ot_shade_encode(const void* hit, const void* forced, const void* word,
                                const void* normal, const void* steps,
                                const void* shadow_hit, int64_t n, float neg_sun_x,
                                float neg_sun_y, float neg_sun_z, int mode, float gamma,
-                               const void* index, const void* visits, const void* table,
-                               void* out, int u8, void* stream) {
+                               const void* index, const void* visits, int64_t n_visits,
+                               const void* table, void* out, int u8, void* stream) {
   if (n == 0) return 0;
   const ShadeArgs a{static_cast<const uint8_t*>(hit),
                     static_cast<const uint8_t*>(forced),
@@ -233,6 +239,7 @@ extern "C" int ot_shade_encode(const void* hit, const void* forced, const void* 
                     gamma,
                     static_cast<const int32_t*>(index),
                     static_cast<const int32_t*>(visits),
+                    static_cast<int32_t>(n_visits < INT_MAX ? n_visits : INT_MAX),
                     static_cast<const float*>(table),
                     out};
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);

@@ -40,8 +40,10 @@
 // multiply moves knife-edge rays), and the build keeps --fmad=false.
 //
 // Visits (`_visit_mark`, tracer.py:355-369, marked at :524-526): every trip
-// marks the slot it reads in an int32[pool] array, as a count or as a stored
-// 1 (flags; every writer stores the same value, so the race is benign).
+// marks slot node + child in an int32[pool] array, as a count or as a stored
+// 1 (flags; every writer stores the same value, so the race is benign). That
+// is the slot it reads in a well-formed pool; a slot past the pool's end is
+// not marked, as JAX's scatter drops it.
 // Counts are warp-aggregated: the lanes marking one slot in the same trip
 // find each other with __match_any_sync and one of them adds their number,
 // so the first descents of a tile, which share the root group, take one
@@ -209,6 +211,7 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
     const float cw = 2.0f / static_cast<float>(1 << a.levels);
     const uint32_t* __restrict__ words = a.words;
     const int32_t n_words = a.n_words;
+    const int32_t last_row = (n_words - 1) >> 3;
     // p: the entry position, which is also the origin of every boundary step.
     float p[3], v[3], nrm[3], rs[3], cp[3] = {0.0f, 0.0f, 0.0f};
     for (int k = 0; k < 3; ++k) {
@@ -244,8 +247,11 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
           a.visits[idx] = 1;
         }
       }
-      // A malformed pool reads its last word, as JAX's clamped gather does.
-      const uint32_t word = __ldg(words + (idx < n_words ? idx : n_words - 1));
+      // JAX's row gather: word `child` of row min(node / 8, rows - 1) of the
+      // pool padded with zero words to whole rows (XLA clamps the row, not
+      // the word). In a well-formed pool this is word idx.
+      const int32_t at = (min(node >> 3, last_row) << 3) | child;
+      const uint32_t word = at < n_words ? __ldg(words + at) : 0u;
       const uint32_t payload = word >> 4;
 
       if (payload < ot::kVoxelOffset) {  // interior: descend

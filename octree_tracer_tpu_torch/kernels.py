@@ -50,7 +50,8 @@ _SIGNATURES = {
                         _I, _I] + [_P] * 3,
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
     "ot_raygen": [_F] * 16 + [_I, _I, _P, _P, _P],
-    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P] * 4 + [_I, _P],
+    "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P, _P, _I64, _P, _P]
+                       + [_I, _P],
     "ot_encode_table": [_P, _F, _P],
     "ot_encode_check": [_P, _P, _P],
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _I64, _P, _I],

@@ -1,9 +1,9 @@
-"""K7, K3, K5 and K4 across source trees: the island SDF grid, ray
-generation, candidate selection and shading of several versions of the
-port, timed in turn on one card.
+"""K7, K3, K5, K4 and K2 across source trees: the island SDF grid, ray
+generation, candidate selection, shading and the warp table and occupancy
+of several versions of the port, timed in turn on one card.
 
     python -m octree_tracer_tpu_torch.probes.kernel_steps TREE [TREE ...] \\
-        [--rounds R] [--kernels k7,k3,k5,k4] [--unchecked TREE ...] [--out DIR]
+        [--rounds R] [--kernels k7,k3,k5,k4,k2] [--unchecked TREE ...] [--out DIR]
 
 Each TREE is a directory holding an ``octree_tracer_tpu_torch`` package: a
 ``git archive`` of an earlier commit, or a copy of this tree with one change.
@@ -13,12 +13,17 @@ K7 the 8 chunk grids of the CLI's default world (chunk_depth 9, world_depth
 1; the first is the production chunk at (-1, -1, -1)); for K3 the bench
 camera's 1920x1080 rays; for K5 and K4 the deep10 frame at 1920x1080 with
 the combined level-7 table (its primary result, shadow hits and counted
-visits, as ``chip_smoke.py`` phases 7, 9 and 10 make them). The workers
+visits, as ``chip_smoke.py`` phases 7, 9 and 10 make them); for K2 its
+warp words and occupancy at level 7 of the deep10 pool and of the
+production chunk's pool (the CLI's default world's first chunk, as
+``Procedural.generate_chunk`` builds it), and at every level from 0 to 9
+of the deep10 pool. The workers
 then measure in turn, A B B A on the same card. The trees need only the
 port's public API (``procedural.block_grid_packed``,
 ``camera.generate_rays_device``, ``tracer.trace``, ``tracer.trace_shadow``,
-``tracer.shade``, ``skip.build_warp_skip_table``,
-``feedback.select_candidates_packed``, ``gather_probe.cuda_ms``).
+``tracer.shade``, ``tracer.warp_occupancy``, ``skip.build_warp_skip_table``,
+``feedback.select_candidates_packed``, ``Procedural.generate_chunk``,
+``gather_probe.cuda_ms``).
 
 Per tree and round, in ms a call:
 
@@ -39,12 +44,18 @@ Per tree and round, in ms a call:
   phase 10's two shapes, caps 65536/65536 (the Session's) from offset
   123457 and caps 1024/1024 from offset 777, device time as ``k3``;
 - ``k4_u8``, ``k4_f32``: K4 on the frame's result and shadow hits, the u8
-  frame and the f32 image, device time as ``k3``.
+  frame and the f32 image, device time as ``k3``;
+- ``k2``, ``k2_chunk``: K2 at level 7 on the deep10 pool and on the
+  production chunk's pool, device time as ``k3``; beside them two floors
+  of this timing on this card: ``k2_l1``, K2 at level 1 (one thread, so
+  what a launch costs), and ``k2_fill``, one ``fill_`` of the bytes K2
+  writes at level 7 (what one launch that only stores them takes).
 
 Every tree must give the first tree's outputs bit for bit (grids,
 directions and origin; the frame inputs; K5's packed lists; K4's u8 and
-f32 frames); the probe exits 1 if one does not, except for the trees named
-by ``--unchecked`` (timing-only copies, whose hashes are printed). It
+f32 frames; K2's warp words and occupancy); the probe exits 1 if one does
+not, except for the trees named by ``--unchecked`` (timing-only copies,
+whose hashes are printed). It
 prints the median and range over rounds and each tree's registers and
 spills of the chosen kernels, and writes all samples to
 ``DIR/kernel_steps.json``.
@@ -67,14 +78,16 @@ FOV = 70.0
 GEN_DEPTH, WORLD_DEPTH = 9, 1
 # generate_world's chunk corners in its order (world/world.py cell_pos).
 CORNERS = [(x, y, z) for x in (-1.0, 0.0) for y in (-1.0, 0.0) for z in (-1.0, 0.0)]
-K7_REPS, K3_REPS, K45_REPS = 5, 50, 50
+K7_REPS, K3_REPS, K45_REPS, K2_REPS = 5, 50, 50, 50
 DEPTH, LEVELS = 10, 7
 # chip_smoke.py phase 10's selections: (sub_cap, unsub_cap, offset).
 K5_CASES = {"k5": (65536, 65536, 123457), "k5_small": (1024, 1024, 777)}
 METRICS = {"k7": ("k7", "k7_world"), "k3": ("k3", "k3_render"),
-           "k5": tuple(K5_CASES), "k4": ("k4_u8", "k4_f32")}
+           "k5": tuple(K5_CASES), "k4": ("k4_u8", "k4_f32"),
+           "k2": ("k2", "k2_chunk", "k2_l1", "k2_fill")}
 # Source files whose ptxas lines are reported, by kernel.
-SOURCES = {"k7": "block_grid", "k3": "raygen", "k5": "select", "k4": "shade"}
+SOURCES = {"k7": "block_grid", "k3": "raygen", "k5": "select", "k4": "shade",
+           "k2": "warp_occupancy"}
 
 
 # A worker loads this file by path beside an older tree's package, so the
@@ -121,7 +134,7 @@ def _frame(dev):
     return words, res, shadow, counts
 
 
-def setup(kernels_csv="k7,k3,k5,k4"):
+def setup(kernels_csv="k7,k3,k5,k4,k2"):
     """In a worker: build the tree's kernels, make and hash what the chosen
     kernels read and write; each request measures them."""
     import torch
@@ -183,6 +196,29 @@ def setup(kernels_csv="k7,k3,k5,k4"):
             digest[name] = _digest(tracer.shade(res, shadow, u8=u8))
             timed[name] = (lambda u: lambda: device_ms(
                 lambda: tracer.shade(res, shadow, u8=u), K45_REPS))(u8)
+    if "k2" in chosen:
+        from octree_tracer_tpu_torch import scenes, state
+        from octree_tracer_tpu_torch.gen.procedural import Procedural
+        from octree_tracer_tpu_torch.render import tracer
+
+        chunk = Procedural(GEN_DEPTH, device=dev).generate_chunk(
+            np.array(CORNERS[0], np.float32), WORLD_DEPTH)
+        pools = {"k2": state.u32_to_device(scenes.deep_shell(DEPTH), dev),
+                 "k2_chunk": state.u32_to_device(chunk.to_words(), dev)}
+        del chunk
+        for name, words in pools.items():
+            digest[name] = _digest(*tracer.warp_occupancy(words, LEVELS))
+            timed[name] = (lambda w: lambda: device_ms(
+                lambda: tracer.warp_occupancy(w, LEVELS), K2_REPS))(words)
+        digest["k2_levels"] = _digest(*(t for lv in range(10)
+                                        for t in tracer.warp_occupancy(pools["k2"], lv)))
+        extra["k2_pool_words"] = {k: int(w.shape[0]) for k, w in pools.items()}
+        if hasattr(tracer, "k2_bytes"):
+            extra["k2_bytes"] = {k: tracer.k2_bytes(w, LEVELS) for k, w in pools.items()}
+        timed["k2_l1"] = lambda: device_ms(lambda: tracer.warp_occupancy(pools["k2"], 1),
+                                           K2_REPS)
+        fill = torch.empty(5 * 8 ** LEVELS, dtype=torch.uint8, device=dev)
+        timed["k2_fill"] = lambda: device_ms(lambda: fill.fill_(1), K2_REPS)
     torch.cuda.synchronize()
     files = [SOURCES[k] for k in chosen]
     ptxas = [line for line in log.splitlines()
@@ -195,8 +231,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=6)
-    ap.add_argument("--kernels", default="k7,k3,k5,k4",
-                    help="comma-separated subset of k7, k3, k5, k4")
+    ap.add_argument("--kernels", default="k7,k3,k5,k4,k2",
+                    help="comma-separated subset of k7, k3, k5, k4, k2")
     ap.add_argument("--unchecked", nargs="*", default=[],
                     help="trees whose outputs may differ (timing-only copies)")
     ap.add_argument("--out", default="_chip/kernel_steps")
@@ -236,6 +272,8 @@ def main(argv=None) -> int:
         notes = [f"K3 alone from {'NumPy by value' if rd['by_value'] else 'a CUDA tensor'}"
                  ] if "by_value" in rd else []
         notes += [f"{rd['hits']} primary hits"] if "hits" in rd else []
+        notes += [f"K2 pools {rd['k2_pool_words']} words"] if "k2_pool_words" in rd else []
+        notes += [f"K2 bytes {rd['k2_bytes']}"] if "k2_bytes" in rd else []
         same = f"equal to {names[0]}'s" if not differ else f"DIFFER on {differ}"
         if name in unchecked:
             same += " (unchecked)"

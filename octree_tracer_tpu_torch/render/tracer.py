@@ -10,13 +10,19 @@ written as separate ops, term by term after the JAX expressions:
   the frame's shadow pass;
 - ``warp_occupancy`` (K2, ``csrc/warp_occupancy.cu``) /
   ``warp_occupancy_plain``: ``build_warp_table`` (``tracer.py:2859``) and
-  ``skip.occupancy_from_pool`` (``skip.py:66``) from one descent;
+  ``skip.occupancy_from_pool`` (``skip.py:66``) from one descent, and
+  ``k2_bytes``, the bytes it must move;
 - ``shade`` (K4, ``csrc/shade_encode.cu``) / ``shade_plain`` and
   ``encode_u8_plain``: ``shade`` (``tracer.py:3132``) and ``encode_u8``
   (``:3191``).
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches its kernel or raises.
+
+Both traversals read the pool as JAX's row gather does (``_row_read``):
+word ``child`` of row ``min(node // 8, rows - 1)`` of the pool padded with
+zeros to whole rows, so a malformed pool's pointer past the end gives
+JAX's result.
 
 ``render_frame`` takes none of the JAX ``render_frame``'s TPU scheduling
 arguments (``mode``, ``tile_size``, ``beams``, ``beam_iters``,
@@ -129,6 +135,29 @@ def _warp_lookup(table: torch.Tensor, levels: int, p: torch.Tensor,
     )
 
 
+def _pool_rows(words: torch.Tensor) -> torch.Tensor:
+    """The pool's words widened (``widen_u32``) and padded with zero words
+    to whole 8-word rows, as JAX pads the pool before its row gathers
+    (tracer.py:399-402, :2882-2884; skip.py:88-90)."""
+    pool = widen_u32(words)
+    pad = (-pool.shape[0]) % 8
+    return torch.cat([pool, pool.new_zeros(pad)]) if pad else pool
+
+
+def _row_read(pool: torch.Tensor, node: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
+    """Index into ``_pool_rows``'s pool of the word that JAX's row gather
+    reads for child ``child`` of node ``node``: word ``child`` of row
+    ``min(node // 8, rows - 1)``. XLA's gather clamps the row, not the word,
+    so a pointer past the pool's end reads the last row, and a word of the
+    last row past the pool's end reads 0."""
+    return (torch.clamp(node >> 3, max=pool.shape[0] // 8 - 1) << 3) | child
+
+
+def _check_pool(words: torch.Tensor) -> None:
+    if words.shape[0] == 0:
+        raise ValueError("the pool is empty: it must hold at least the root group")
+
+
 def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
                 strict_descent=True, warp_table=None, visits=None,
                 visit_flags=False) -> TraceResult:
@@ -143,7 +172,8 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     1 under ``visit_flags``."""
     dev = dirs.device
     n = dirs.shape[0]
-    pool = widen_u32(words)
+    n_words = words.shape[0]
+    pool = _pool_rows(words)
     table = widen_u32(warp_table) if warp_table is not None else None
     levels = warp_table_levels(warp_table) if table is not None else 0
     combined = table is not None and warp_table_combined(warp_table)
@@ -197,9 +227,9 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         inv1 = _pow2(-depth1)[:, None]
         np_ = cp + (pb.to(_F32) * 2.0 - 1.0) * inv1
         idx = node + child
-        word = pool[idx]
+        word = pool[_row_read(pool, node, child)]
         if visits is not None:
-            marked = idx[idx < pool.shape[0]]  # out-of-pool marks drop
+            marked = idx[idx < n_words]  # out-of-pool marks drop, as JAX's
             if visit_flags:
                 visits[marked] = 1
             else:
@@ -297,6 +327,7 @@ def _trace_checks(words, n, dev, warp_table, visits, visit_flags):
     """Checks shared by K1's two wrappers; returns (table_mode, levels,
     visit_mode)."""
     kernels.check(words, "words", _I32, (None,), dev)
+    _check_pool(words)
     if 3 * n >= 1 << 31:
         raise ValueError(f"{n} rays: K1 indexes rays in int32, so n < 2^31 / 3")
     table_mode, levels = 0, 0
@@ -405,31 +436,65 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
     return hit
 
 
-def warp_occupancy_plain(words: torch.Tensor, levels: int):
-    """Plain PyTorch version of kernel K2. Returns (warp table int32[8^L] of
-    u32 words ``(node << 5) | depth``, occupancy bool[8^L])."""
-    dev = words.device
-    pool = widen_u32(words)
+def _k2_descent(words: torch.Tensor, levels: int, cells: torch.Tensor | None = None,
+                on_level=None):
+    """The descent of JAX ``build_warp_table`` (tracer.py:2859) and
+    ``occupancy_from_pool`` (skip.py:66) toward the centres of ``cells``
+    (flat x-major indices into the 2^levels grid; every cell by default), in
+    f32 as JAX computes it, reading the pool as JAX's row gather does
+    (``_row_read``). Returns (node, depth, word), int64: where each descent
+    stopped and the last word it read (0 at levels 0). ``on_level(it,
+    child, depth, read)``, if given, sees each of the ``levels`` trips: the
+    child the comparison picked, the depth it was picked at and the index
+    read in the padded pool."""
+    pool = _pool_rows(words)
     side = 1 << levels
-    c = torch.arange(side ** 3, dtype=torch.int64, device=dev)
-    cells = torch.stack([c >> (2 * levels), (c >> levels) & (side - 1),
-                         c & (side - 1)], dim=1)
-    centre = (cells.to(_F32) + 0.5) * (2.0 / side) - 1.0
+    c = (torch.arange(side ** 3, dtype=torch.int64, device=words.device)
+         if cells is None else cells)
+    cells3 = torch.stack([c >> (2 * levels), (c >> levels) & (side - 1),
+                          c & (side - 1)], dim=1)
+    centre = (cells3.to(_F32) + 0.5) * (2.0 / side) - 1.0
     node = torch.zeros_like(c)
     node_pos = torch.zeros_like(centre)
     depth = torch.zeros_like(c)
     word = torch.zeros_like(c)
-    for _ in range(levels):
+    for it in range(levels):
         pb = centre > node_pos
         child = pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
-        word = pool[node + child]
+        read = _row_read(pool, node, child)
+        word = pool[read]
+        if on_level is not None:
+            on_level(it, child, depth, read)
         payload = word >> 4
         step_ok = (payload < VOXEL_OFFSET) & (depth < levels)
         node_pos2 = node_pos + (pb.to(_F32) * 2.0 - 1.0) / _pow2(depth + 1)[:, None]
         node = torch.where(step_ok, payload, node)
         node_pos = torch.where(step_ok[:, None], node_pos2, node_pos)
         depth = torch.where(step_ok, depth + 1, depth)
+    return node, depth, word
+
+
+def warp_occupancy_plain(words: torch.Tensor, levels: int):
+    """Plain PyTorch version of kernel K2. Returns (warp table int32[8^L] of
+    u32 words ``(node << 5) | depth``, occupancy bool[8^L])."""
+    node, depth, word = _k2_descent(words, levels)
     return narrow_u32((node << 5) | depth), (word >> 4) != VOXEL_OFFSET
+
+
+def k2_bytes(words: torch.Tensor, levels: int) -> int:
+    """Bytes K2 must move for the 2^levels grid of ``words``: 5 a cell out
+    (the warp word and the occupancy flag), and each 32-byte sector of the
+    pool that the descents read, once (a word past the pool's end reads no
+    memory; the pool starts on a sector). Counted on the plain descent, on
+    ``words``'s device."""
+    n_words = words.shape[0]
+    seen = torch.zeros((n_words + 7) // 8, dtype=torch.bool, device=words.device)
+
+    def mark(it, child, depth, read):
+        seen[read[read < n_words] >> 3] = True
+
+    _k2_descent(words, levels, on_level=mark)
+    return 5 * 8 ** levels + 32 * int(seen.sum())
 
 
 def warp_occupancy(words: torch.Tensor, levels: int):
@@ -440,6 +505,7 @@ def warp_occupancy(words: torch.Tensor, levels: int):
     ``warp_occupancy_plain``."""
     dev = words.device
     kernels.check(words, "words", _I32, (None,))
+    _check_pool(words)
     if not 0 <= levels <= 9:
         raise ValueError(f"levels must be in [0, 9], got {levels}")
     if not kernels.uses_kernel(dev):
@@ -477,7 +543,8 @@ def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
         g = div_scalar(result.steps.to(_F32), 64.0)
         return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
     if hits_visits is not None:
-        counter = hits_visits[result.index.clamp_min(0).long()].clamp_max(15)
+        slot = result.index.clamp(0, hits_visits.shape[0] - 1).long()  # JAX's clamped gather
+        counter = hits_visits[slot].clamp_max(15)
         g = torch.where(result.hit, div_scalar(counter.to(_F32), 15.0), 0.0)
         return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
     diffuse = torch.clamp_min(_lambert(result.normal, _neg_sun(sun_dir)), 0.0)
@@ -569,8 +636,9 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
           hits_visits=None) -> torch.Tensor:
     """Colours f32[N, 3], or the encoded frame u8[N, 3] when ``u8``.
     ``hits_visits`` (int32[pool]) selects the hit-counter view: hits show
-    ``min(visits[index], 15) / 15`` grey (``show_steps`` still wins, as in
-    JAX ``shade``). On a CUDA device this launches kernel K4; on the CPU it
+    ``min(visits[index], 15) / 15`` grey, the slot clamped into the pool as
+    JAX's gather clamps it (``show_steps`` still wins, as in JAX
+    ``shade``). On a CUDA device this launches kernel K4; on the CPU it
     is ``shade_plain`` (and ``encode_u8_plain``)."""
     dev = result.hit.device
     n = result.hit.shape[0]
@@ -584,6 +652,8 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
     if hits_visits is not None:
         kernels.check(result.index, "index", _I32, (n,), dev)
         kernels.check(hits_visits, "hits_visits", _I32, (None,), dev)
+        if hits_visits.shape[0] == 0:
+            raise ValueError("hits_visits is empty")
     if not kernels.uses_kernel(dev):
         img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma, hits_visits)
         return encode_u8_plain(img) if u8 else img
@@ -597,6 +667,7 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
         kernels.ptr(result.steps), kernels.ptr(shadow_hit), n,
         float(s[0]), float(s[1]), float(s[2]), mode, gamma,
         kernels.ptr(result.index), kernels.ptr(hits_visits),
+        0 if hits_visits is None else hits_visits.shape[0],
         kernels.ptr(encode_table(dev, gamma)), kernels.ptr(out), int(u8),
     )
     return out
@@ -677,9 +748,10 @@ def to_numpy(result) -> dict:
 def overlay_hit_counts(visits: torch.Tensor, result: TraceResult) -> torch.Tensor:
     """Visit flags with exact filled-leaf counts: a filled-leaf visit always
     ends its ray, so the non-forced hits enumerate those visits (JAX
-    ``render_frame``, tracer.py:3414-3423). Rays that did not hit add 0 at
-    slot 0, which keeps the scatter free of a host sync."""
-    hm = result.hit & ~result.forced & (result.index >= 0)
+    ``render_frame``, tracer.py:3414-3423). Rays that did not hit, and hits
+    past the pool's end (a malformed pool's, which JAX's scatter drops), add
+    0 at slot 0, which keeps the scatter free of a host sync."""
+    hm = result.hit & ~result.forced & (result.index >= 0) & (result.index < visits.shape[0])
     counts = torch.zeros_like(visits)
     counts.index_add_(0, torch.where(hm, result.index, 0).long(), hm.to(_I32))
     return torch.where(counts > 0, counts, visits)

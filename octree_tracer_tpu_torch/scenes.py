@@ -211,3 +211,45 @@ def random_scene(depth: int, n_voxels: int, seed: int) -> np.ndarray:
     cells = rng.integers(0, 1 << depth, (n_voxels, 3))
     rgb = rng.integers(1, 1 << 24, n_voxels).astype(np.uint32)
     return build_leaves(cells, rgb, depth)
+
+
+def _leaf(rgb: int) -> np.uint32:
+    return np.uint32((VOXEL_OFFSET + rgb) << 4)
+
+
+def _ptr(node: int) -> np.uint32:
+    return np.uint32(node << 4)
+
+
+def malformed_pools() -> dict[str, np.ndarray]:
+    """Pools whose pointers run past their end, as no well-formed tree's do.
+    JAX reads them with a clamped row gather (``render/tracer.py``
+    ``_row_read``), and the port is held to it:
+
+    - ``past_end16``: 16 words. Every root child points at group 16, past
+      the end, so every descent reads row 1: seven empty leaves and, last, a
+      filled one.
+    - ``ragged21``: 21 words, the last row cut after 5. Root children point
+      at group 8, at group 16 (whose children 5-7 are past the end and read
+      0, a pointer back to the root) and at group 40 (past the end); row 1
+      holds leaves and a pointer to node 19, inside row 2 but off its start.
+    - ``moved_random``: ``random_scene(5, 300, 1)`` with every 7th interior
+      pointer moved 2^15 words past the end, onto the last row (leaves).
+
+    Past the end of a pool whose length is no multiple of 8, a row reads 0,
+    a pointer to the root; descents that keep returning there grow deeper
+    than 126 levels, past where K1's powers of two are exact, so the pools
+    that rays trace here return there only a few times.
+    """
+    empty = np.uint32(VOXEL_OFFSET << 4)
+    past_end16 = np.array([_ptr(16)] * 8 + [empty] * 7 + [_leaf(0x30C050)],
+                          dtype=np.uint32)
+    ragged21 = np.array(
+        [_ptr(8)] * 4 + [_ptr(16), _ptr(16), _ptr(40), empty]
+        + [_leaf(0xC03020), empty, _ptr(19), _leaf(0x2080E0), empty, _leaf(0x10F010),
+           _ptr(16), empty]
+        + [_leaf(0xE0E0E0), empty, _leaf(0x4040C0), empty, empty], dtype=np.uint32)
+    moved = random_scene(5, 300, 1)
+    interior = np.nonzero((moved >> np.uint32(4)) < VOXEL_OFFSET)[0]
+    moved[interior[::7]] = _ptr(moved.shape[0] + (1 << 15))
+    return {"past_end16": past_end16, "ragged21": ragged21, "moved_random": moved}

@@ -198,6 +198,22 @@ def test_kernel_steps_needs_the_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_kernel_steps_k2_choice(monkeypatch, capsys):
+    """The K2 choice times level 7 on two pools and reports the K2 source's
+    ptxas lines; chosen alone it too exits 1 without a card, and a name
+    outside the choices is refused."""
+    from octree_tracer_tpu_torch.probes import kernel_steps
+
+    assert kernel_steps.METRICS["k2"] == ("k2", "k2_chunk", "k2_l1", "k2_fill")
+    assert kernel_steps.SOURCES["k2"] == "warp_occupancy"
+    assert "k2" in kernel_steps.setup.__defaults__[0].split(",")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_steps.main(["no_such_tree", "--kernels", "k2"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        kernel_steps.main(["no_such_tree", "--kernels", "k2,k8"])
+
+
 _PAYLOAD = """
 import os, time
 import marker

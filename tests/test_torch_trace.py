@@ -287,3 +287,123 @@ def test_shadow_and_trace_reject_malformed_inputs(case):
     exc, call = SHADOW_CASES[case]
     with pytest.raises(exc):
         call(state.u32_to_device(words, "cpu"), res)
+
+
+MALFORMED = scenes.malformed_pools()
+MAL_RES = 24  # 576 rays
+MAL_LEVELS = 3
+INSIDE = (np.array([-0.35, 0.55, -0.6], np.float32), np.array([0.3, -0.5, 1.0], np.float32))
+EXACT = ("hit", "forced", "index", "steps", "depth", "normal", "word")
+
+
+def _mal_rays(inside=False):
+    pos, look = INSIDE if inside else CAMERAS["bench"][:2]
+    _, ci = camera_matrices(pos, look, 70.0, MAL_RES, MAL_RES)
+    o, d = generate_rays(ci, MAL_RES, MAL_RES)
+    d = np.asarray(d).reshape(-1, 3)
+    return np.broadcast_to(np.asarray(o), d.shape).copy(), d
+
+
+@functools.lru_cache(maxsize=None)
+def _mal_table(pool, kind):
+    if kind == "none":
+        return None
+    words = jnp.asarray(MALFORMED[pool])
+    if kind == "warp":
+        return np.asarray(jtracer.build_warp_table(words, MAL_LEVELS))
+    return np.asarray(jskip.build_warp_skip_table(words, MAL_LEVELS))
+
+
+def _assert_exact(a, b):
+    for f in EXACT:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    # hit_pos: JAX's CPU build contracts the position update differently
+    # (an ulp); the repository's rule holds it within 1e-5.
+    assert np.abs(a["hit_pos"] - b["hit_pos"]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("table", ["none", "warp", "combined"])
+@pytest.mark.parametrize("pool", sorted(MALFORMED))
+def test_malformed_pool_trace_equals_jax(pool, table):
+    """Pointers past the pool's end: the port reads the clamped row JAX's
+    gather reads, and reports the unclamped slot as JAX does, so hit,
+    index, steps, depth, normal and word are equal on every ray."""
+    origins, dirs = _mal_rays()
+    words, tab = MALFORMED[pool], _mal_table(pool, table)
+    a = _port(words, origins, dirs, tab)
+    b = _jax(words, origins, dirs, tab)
+    _assert_exact(a, b)
+    assert a["hit"].any() and (a["index"] >= words.shape[0]).any()
+
+
+@pytest.mark.parametrize("flags", [False, True])
+@pytest.mark.parametrize("table", ["none", "combined"])
+@pytest.mark.parametrize("pool", sorted(MALFORMED))
+def test_malformed_pool_visits_equal_jax(pool, table, flags):
+    """Visit marks land on JAX's slots: node + child, dropped past the
+    pool's end, counted or flagged. From a camera inside the root cube (a
+    table's resume from outside differs by JAX's CPU face rounding, see
+    test_torch_visits.py)."""
+    origins, dirs = _mal_rays(inside=True)
+    words, tab = MALFORMED[pool], _mal_table(pool, table)
+    visits = torch.zeros(words.shape[0], dtype=torch.int32)
+    a = _port(words, origins, dirs, tab, visits=visits, visit_flags=flags)
+    res, expect = jtracer.trace(
+        jnp.asarray(words), jnp.asarray(origins), jnp.asarray(dirs),
+        warp_table=None if tab is None else jnp.asarray(tab), with_visits=True,
+        visit_flags=flags)
+    _assert_exact(a, ttracer.to_numpy(res))
+    np.testing.assert_array_equal(visits.numpy(), np.asarray(expect))
+    # past_end16's table resumes every ray at group 16, whose marks all drop.
+    assert a["hit"].any() and (visits.numpy().any() or pool == "past_end16")
+
+
+@pytest.mark.parametrize("pool", sorted(MALFORMED))
+def test_malformed_pool_shadow_equals_jax(pool):
+    """K1's shadow mode on a malformed pool: its hit mask and its counts
+    are JAX ``trace``'s on the shadow rays built in NumPy."""
+    origins, dirs = _mal_rays(inside=True)
+    words, tab = MALFORMED[pool], _mal_table(pool, "combined")
+    w, t = state.u32_to_device(words, "cpu"), state.table_to_device(tab, "cpu")
+    res = ttracer.trace(w, torch.from_numpy(origins), torch.from_numpy(dirs), warp_table=t)
+    visits = torch.zeros(words.shape[0], dtype=torch.int32)
+    hit = ttracer.trace_shadow(w, res, cull=False, warp_table=t, visits=visits,
+                               image_width=MAL_RES)
+    neg_sun = ttracer._neg_sun(ttracer.DEFAULT_SUN)
+    o_np = res.hit_pos.numpy() + res.normal.numpy() * np.float32(2.5e-6)
+    d_np = np.broadcast_to(neg_sun, o_np.shape).copy()
+    jres, expect = jtracer.trace(jnp.asarray(words), jnp.asarray(o_np), jnp.asarray(d_np),
+                                 active_init=jnp.asarray(res.hit.numpy()),
+                                 warp_table=jnp.asarray(tab), with_visits=True)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(jres.hit))
+    np.testing.assert_array_equal(visits.numpy(), np.asarray(expect))
+    assert hit.any() and (res.hit & ~hit).any()
+
+
+def test_overlay_drops_hits_past_the_pool():
+    """A hit whose slot lies past the pool's end adds no filled-leaf count,
+    as JAX's dropping scatter (tracer.py:3419-3422)."""
+    words = MALFORMED["past_end16"]
+    origins, dirs = _mal_rays(inside=True)
+    w = state.u32_to_device(words, "cpu")
+    flags = torch.zeros(words.shape[0], dtype=torch.int32)
+    res = ttracer.trace(w, torch.from_numpy(origins), torch.from_numpy(dirs), visits=flags,
+                        visit_flags=True)
+    assert res.hit.any() and bool((res.index[res.hit] >= words.shape[0]).all())
+    assert torch.equal(ttracer.overlay_hit_counts(flags, res), flags)
+
+
+def test_malformed_pool_show_hits_equals_jax():
+    """The hit-counter view reads each hit's visit count at its slot,
+    clamped into the pool as JAX's gather clamps it: a hit past the pool's
+    end shows the pool's last count, as in JAX ``shade``."""
+    words = MALFORMED["ragged21"]
+    origins, dirs = _mal_rays(inside=True)
+    res, visits = jtracer.trace(jnp.asarray(words), jnp.asarray(origins), jnp.asarray(dirs),
+                                with_visits=True)
+    port = ttracer.TraceResult(*(torch.from_numpy(np.asarray(f).copy()) for f in res))
+    port = port._replace(word=port.word.view(torch.int32))
+    assert bool((port.index >= words.shape[0]).any())
+    expect = np.asarray(jtracer.shade(jnp.asarray(words), res, None, show_hits_visits=visits))
+    got = ttracer.shade(port, None, hits_visits=torch.from_numpy(np.asarray(visits).copy()))
+    np.testing.assert_allclose(got.numpy(), expect, rtol=0, atol=1e-6)
