@@ -7,9 +7,10 @@ plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
 
 - the tables (4): K2 equal to its plain version at every level 0-9 on the
-  deep10 pool and on pools whose pointers run past their end
+  deep10 pool and on pools whose pointers run past their end or cycle
   (``scenes.malformed_pools``), and K1 and K4's hit-counter view equal to
-  theirs on those pools;
+  theirs on those pools, from a camera on a centre plane too, where the
+  cyclic pool's descents pass 126 levels;
 - the frame: the bench's deep10 scene at 1920x1080 with shadows and the
   combined level-7 warp+skip table (phases 3-8): K1's tiled call from one
   stride-0 origin against the flat contiguous call and the plain version,
@@ -32,7 +33,19 @@ against the NumPy oracle on a subsample, and drives the main paths:
   one-block lines t1-t10b timed again 21 times each, kernel and library
   call in turn, and both kernels' edge paths against their plain versions:
   K8 on a width-3 table and a misaligned view, K9 on an odd length and a
-  view one element off 16 bytes (16).
+  view one element off 16 bytes (16);
+- the app, as a user runs it (17-21): deep10 through ``.rsvo`` and a
+  generated 256^3 chunk through ``.vox`` and back (17); the CLI's
+  ``render`` and ``bench`` of deep10.rsvo at 1920x1080 in their own
+  processes, the PNG equal to a direct ``render_frame`` on every pixel
+  (18); a synthetic asset root (8 blocks, 2 structures) and ``genworld
+  --structures`` at the CLI's defaults, then CPU and CUDA chunk_depth 5
+  worlds with structures byte-equal (19); ``fly`` over that world with the
+  block library, 30 frames at 1920x1080 (20); and the HTTP viewer over a
+  1920x1080 Session on it: the page, frames, 8 steps with movement and
+  toggles, an Open of deep10.rsvo and a Regenerate at chunk_depth 5 (21).
+  Each path's launches, counted in its own process (``--launch-counts``),
+  go into the kernels line as ``app_launches``.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -63,10 +76,12 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -100,6 +115,11 @@ GEN_CORNER = (-1.0, -1.0, -1.0)
 GEN_CORNERS = (GEN_CORNER, (0.0, -1.0, 0.0))
 GEN_STEPS, GEN_TURN = 30, 22
 GEN_LOCK_DEPTH, GEN_LOCK_STEPS, GEN_LOCK_TURN = 5, 12, 8
+# Phases 17-21: a generated chunk through .vox at its largest side (256),
+# the CLI's fly, and the viewer's steps.
+APP_VOX_DEPTH, APP_GEN_ID = 8, 1 << 30
+FLY_FRAMES, VIEW_STEPS = 30, 8
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12
 
@@ -209,15 +229,21 @@ def malformed_trace_check(dev, pools: dict) -> str:
     end, with no table and with the combined level-3 table, from the bench
     camera and from inside the root cube: every primary output, counted
     and flagged visits, and the shadow mode's hits and counts, exact; K4's
-    hit-counter view on the result within 1e-6."""
+    hit-counter view on the result within 1e-6. The "plane" camera sits
+    on a centre plane, where a cyclic pool's descents pass 126 levels."""
     from octree_tracer_tpu_torch.render import camera, skip, tracer
 
     res_px = 96
     cams = {"bench": (np.array([0.4, 0.6, -2.2], np.float32),
                       np.array([-0.2, -0.35, 1.0], np.float32)),
             "inside": (np.array([-0.35, 0.55, -0.6], np.float32),
-                       np.array([0.3, -0.5, 1.0], np.float32))}
-    hits = past = 0
+                       np.array([0.3, -0.5, 1.0], np.float32)),
+            # On the x = 0 centre plane: on self_cycle every descent takes a
+            # child with x above the centre forever, past 126 levels, where
+            # the powers of two turn subnormal and then 0, to the loop's cap.
+            "plane": (np.array([0.0, 0.3, -0.45], np.float32),
+                      np.array([0.3, -0.5, 1.0], np.float32))}
+    hits = past = capped = 0
     for name, words in pools.items():
         n_words = words.shape[0]
         for cam, (pos, look) in cams.items():
@@ -256,10 +282,16 @@ def malformed_trace_check(dev, pools: dict) -> str:
                 check(err <= 1e-6, f"shade show_hits differs from plain by {err} on {what}")
                 hits += int(r_k.hit.sum())
                 past += int((r_k.index >= n_words).sum())
-    return (f"kernel equal to plain on {sorted(pools)} ({res_px}x{res_px} rays, bench and "
-            f"inside cameras, no table and combined L3; primary outputs, counts, flags, "
+                if name == "self_cycle" and cam == "plane":
+                    capped += int((~r_k.hit).sum())
+    if "self_cycle" in pools:
+        check(capped > 0, "no self_cycle ray descended to the loop's cap")
+    return (f"kernel equal to plain on {sorted(pools)} ({res_px}x{res_px} rays, bench, "
+            f"inside and centre-plane cameras, no table and combined L3; primary outputs, "
+            f"counts, flags, "
             f"shadow hits and counts; K4's show_hits view within 1e-6): {hits} hits, {past} "
-            f"of them at slots past the pool's end")
+            f"of them at slots past the pool's end; {capped} self_cycle rays descended past "
+            f"126 levels to the loop's cap")
 
 
 def main() -> int:
@@ -597,6 +629,7 @@ def run(dev: torch.device) -> int:
     session_phases(dev, report, words, origins, dirs, table, res_k, card)
     gen_phases(dev, report, card)
     probe_phase(dev, report)
+    app_phases(dev, report, card)
 
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -866,7 +899,7 @@ def gen_phases(dev, report, card) -> None:
     try:
         path = os.path.join(root_dir, "world")
         proc = procedural.Procedural(chunk_depth=GEN_DEPTH, device=dev)
-        world = World()
+        world = World(load_blocks=False)
         mip_s, save_s = [], []
         mip, save = world.generate_mip_tree, world.save_chunk
 
@@ -889,7 +922,7 @@ def gen_phases(dev, report, card) -> None:
         launches = kernels.LAUNCHES["block_grid"]
         check(launches == 8 ** WORLD_DEPTH, f"block_grid launched {launches} times")
         report["block_grid"]["launches"] = launches
-        loaded = World.load_world(path)
+        loaded = World.load_world(path, load_blocks=False)
         check(np.array_equal(loaded.chunks[0].pointers, world.chunks[0].pointers)
               and np.array_equal(loaded.chunks[0].values, world.chunks[0].values),
               "the reloaded root differs")
@@ -907,9 +940,10 @@ def gen_phases(dev, report, card) -> None:
 
         # 15b. CPU and CUDA Sessions in lockstep on a small generated world.
         small = os.path.join(root_dir, "small")
-        World().generate_world(small, procedural.Procedural(chunk_depth=GEN_LOCK_DEPTH,
-                                                            device=dev), world_depth=1)
-        pair = [Session(World.load_world(small), *LOCK_RES, device=d) for d in ("cpu", dev)]
+        World(load_blocks=False).generate_world(
+            small, procedural.Procedural(chunk_depth=GEN_LOCK_DEPTH, device=dev), world_depth=1)
+        pair = [Session(World.load_world(small, load_blocks=False), *LOCK_RES, device=d)
+                for d in ("cpu", dev)]
         for s_ in pair:
             s_.character.pos = LOCK_POS.copy()
             s_.character.look = LOCK_LOOK.copy()
@@ -948,7 +982,7 @@ def gen_session(dev, path, card) -> None:
     from octree_tracer_tpu_torch.app.session import Session
     from octree_tracer_tpu_torch.world.world import World
 
-    world = World.load_world(path)
+    world = World.load_world(path, load_blocks=False)
     sess = Session(world, W, H, device=dev)
     sess.character.pos = CAM_POS.copy()
     sess.character.look = CAM_LOOK.copy()
@@ -1048,6 +1082,257 @@ def probe_phase(dev, report) -> None:
             launches=launches[kernel], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", shape_of=line)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels u8[H, W, 3] of an 8-bit RGB PNG whose rows all use filter
+    0, as ``app.headless.png_bytes`` writes them; every chunk's CRC is
+    checked."""
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, shape = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(zlib.crc32(tag + body) == crc, f"bad CRC in the PNG's {tag} chunk")
+        if tag == b"IHDR":
+            w, h, bits, colour = struct.unpack(">IIBB", body[:10])
+            check(bits == 8 and colour == 2, f"PNG of {bits} bits, colour type {colour}")
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "a PNG row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(args: list, env: dict | None = None) -> tuple[str, float, dict]:
+    """Run ``python -m octree_tracer_tpu_torch.app.cli`` from the repository
+    root with ``args``; returns (standard output, seconds, each kernel's
+    launches in that process). Raises if it fails."""
+    fd, counts = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "octree_tracer_tpu_torch.app.cli", "--launch-counts",
+             counts, *map(str, args)], cwd=REPO, env=dict(os.environ, **(env or {})),
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli {args[0]} failed ({proc.returncode}):\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(counts) as f:
+            launches = {k: v for k, v in json.load(f).items() if v}
+    finally:
+        os.remove(counts)
+    return proc.stdout, secs, launches
+
+
+def app_phases(dev, report, card) -> None:
+    """Phases 17-21: io round trips, the CLI's render, bench, genworld
+    --structures and fly as a user runs them, and the HTTP viewer, at
+    1920x1080 on the card; each path's launches go into the report."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from octree_tracer_tpu_torch import kernels, scenes, state
+    from octree_tracer_tpu_torch.app.session import Session
+    from octree_tracer_tpu_torch.app.viewer import ViewerServer, make_handler
+    from octree_tracer_tpu_torch.gen import procedural
+    from octree_tracer_tpu_torch.io import load_file
+    from octree_tracer_tpu_torch.io.rsvo_export import save_rsvo
+    from octree_tracer_tpu_torch.io.vox_export import save_vox, tree_to_cells
+    from octree_tracer_tpu_torch.render import camera, tracer
+    from octree_tracer_tpu_torch.world.world import World
+
+    paths = {}
+
+    def record(path, launches):
+        paths[path] = launches
+        for k, v in launches.items():
+            report[k].setdefault("app_launches", {})[path] = v
+
+    tmp = tempfile.mkdtemp(prefix="ot_app_")
+    try:
+        # 17. io: deep10 through .rsvo (its masks), a generated chunk
+        #     through .vox (every filled cell and colour).
+        rsvo_path = os.path.join(tmp, f"deep{DEPTH}.rsvo")
+        chunk = scenes.shell_chunk(DEPTH)
+        t0 = time.perf_counter()
+        data = save_rsvo(chunk)
+        with open(rsvo_path, "wb") as f:
+            f.write(data)
+        t1 = time.perf_counter()
+        back = load_file(rsvo_path, DEPTH)
+        t2 = time.perf_counter()
+        check(save_rsvo(back) == data, "deep10's masks differ after the .rsvo round trip")
+        assets = scenes.write_asset_root(os.path.join(tmp, "assets"))
+        world = World(asset_root=assets)
+        kernels.reset_launches()
+        gen = procedural.Procedural(chunk_depth=APP_VOX_DEPTH, device=dev).generate_chunk(
+            GEN_CORNER, 1)
+        torch.cuda.synchronize()
+        record("gen_chunk8", {k: v for k, v in kernels.LAUNCHES.items() if v})
+        world.chunks[APP_GEN_ID] = gen
+        world.generate_mip_tree(APP_GEN_ID)  # block references take their blocks' colours
+        vox_path = os.path.join(tmp, "chunk8.vox")
+        t3 = time.perf_counter()
+        vdata = save_vox(gen, APP_VOX_DEPTH)
+        with open(vox_path, "wb") as f:
+            f.write(vdata)
+        t4 = time.perf_counter()
+        vback = load_file(vox_path)
+        t5 = time.perf_counter()
+        cells = []
+        for tree in (gen, vback):
+            c, rgb = tree_to_cells(tree, APP_VOX_DEPTH)
+            key = (c[:, 0].astype(np.int64) << 16) | (c[:, 1].astype(np.int64) << 8) | c[:, 2]
+            order = np.argsort(key)
+            cells.append((key[order], rgb[order]))
+        check(cells[0][0].size > 0 and np.array_equal(cells[0][0], cells[1][0])
+              and np.array_equal(cells[0][1], cells[1][1]),
+              "the generated chunk's filled cells differ after the .vox round trip")
+        phase("17 io", f"deep{DEPTH} .rsvo: {len(data):,} bytes, save {t1 - t0:.3f} s, "
+              f"load {t2 - t1:.3f} s, masks equal; generated {1 << APP_VOX_DEPTH}^3 chunk "
+              f".vox: {len(vdata):,} bytes, save {t4 - t3:.3f} s, load {t5 - t4:.3f} s, "
+              f"{cells[0][0].size} filled cells and colours equal; launches {paths['gen_chunk8']}")
+
+        # 18. The CLI's render and bench of deep10.rsvo at 1920x1080: the
+        #     PNG is a direct render_frame's u8 frame, pixel for pixel.
+        cam = f"{','.join(map(str, CAM_POS))}:{','.join(map(str, CAM_LOOK))}"
+        png_path = os.path.join(tmp, "render.png")
+        out, secs, launches = run_cli(["render", rsvo_path, "--depth", DEPTH, "--width", W,
+                                       "--height", H, "--fov", FOV, "--camera", cam,
+                                       "-o", png_path])
+        record("render", launches)
+        with open(png_path, "rb") as f:
+            png = f.read()
+        img = decode_png(png)
+        ci = camera.camera_matrices(CAM_POS, CAM_LOOK, FOV, W, H)[1]
+        origin, dirs = camera.generate_rays_device(ci, W, H, dev)
+        direct, res, _ = tracer.render_frame(state.u32_to_device(back.to_words(), dev),
+                                             origin, dirs, u8_image=True)
+        differ = int(np.any(img != direct.cpu().numpy(), axis=-1).sum())
+        check(differ == 0, f"the CLI's PNG differs from render_frame on {differ} pixels")
+        check(all(launches.get(k, 0) > 0 for k in ("trace", "raygen", "shade_encode")),
+              f"render launched {launches}")
+        out_b, secs_b, launches_b = run_cli(["bench", "--scene", rsvo_path, "--depth", DEPTH,
+                                             "--width", W, "--height", H, "--fov", FOV,
+                                             "--camera", cam])
+        record("bench", launches_b)
+        bench = json.loads(out_b.strip().splitlines()[-1])
+        check(bench["hits"] == int(res.hit.sum()), f"bench hits {bench['hits']}")
+        phase("18 render", f"{card}: cli render deep{DEPTH}.rsvo {W}x{H} in {secs:.1f} s "
+              f"(process): {out.strip()}; PNG {len(png):,} bytes equal to render_frame's "
+              f"u8 frame on every pixel; launches {launches}")
+        phase("18 bench", f"{card}: cli bench in {secs_b:.1f} s (process), launches "
+              f"{launches_b}: {json.dumps(bench)}")
+
+        # 19. genworld --structures at the CLI's defaults with the synthetic
+        #     asset root; then a CPU and a CUDA world at chunk_depth 5 with
+        #     structures, file for file.
+        env = {"OT_ASSET_ROOT": assets}
+        world_dir = os.path.join(tmp, "world")
+        out, secs, launches = run_cli(["genworld", world_dir, "--structures"], env)
+        record("genworld", launches)
+        per_chunk = re.findall(r"chunks generated \((.*)\)", out)
+        stamped = sum(int(m) for m in re.findall(r"(\d+) blocks stamped", out))
+        check(len(per_chunk) == 8 and stamped > 0 and launches.get("block_grid") == 8,
+              f"genworld --structures: {len(per_chunk)} chunks, {stamped} blocks stamped, "
+              f"launches {launches}")
+        pair = {}
+        for d in ("cpu", dev):
+            path = os.path.join(tmp, f"small_{torch.device(d).type}")
+            p = procedural.Procedural(chunk_depth=GEN_LOCK_DEPTH, structures=True, device=d,
+                                      asset_root=assets)
+            World(asset_root=assets).generate_world(path, p, world_depth=1)
+            pair[d] = (path, sum(t["stamped"] for t in p.timings))
+        (cpu_path, cpu_stamped), (gpu_path, gpu_stamped) = pair.values()
+        names = sorted(os.listdir(cpu_path))
+        check(sorted(os.listdir(gpu_path)) == names and cpu_stamped == gpu_stamped > 0,
+              f"CPU and CUDA worlds: {names}, stamped {cpu_stamped} and {gpu_stamped}")
+        for name in names:
+            with open(os.path.join(cpu_path, name), "rb") as a, \
+                    open(os.path.join(gpu_path, name), "rb") as b:
+                check(a.read() == b.read(), f"CPU and CUDA chunk {name} differ")
+        phase("19 genworld", f"{card}: cli genworld --structures (chunk_depth {GEN_DEPTH}, "
+              f"world_depth {WORLD_DEPTH}) in {secs:.1f} s (process), {stamped} blocks "
+              f"stamped; per chunk: {per_chunk}; launches {launches}; CPU and CUDA "
+              f"chunk_depth {GEN_LOCK_DEPTH} worlds with structures byte-equal in "
+              f"{len(names)} files, {gpu_stamped} blocks stamped")
+
+        # 20. fly over that world with the block library, 1920x1080.
+        out, secs, launches = run_cli(["fly", world_dir, "--width", W, "--height", H,
+                                       "--frames", FLY_FRAMES, "-o",
+                                       os.path.join(tmp, "fly_%d.png")], env)
+        record("fly", launches)
+        ticks = [float(m) for m in re.findall(r"frame \d+: (\d+) ms", out)]
+        summary = out.strip().splitlines()[-1]
+        loads, evictions, deepest = map(int, re.findall(r"\d+", summary))
+        saved = sorted(f for f in os.listdir(tmp) if f.startswith("fly_"))
+        for f in saved:
+            with open(os.path.join(tmp, f), "rb") as fh:
+                check(decode_png(fh.read()).shape == (H, W, 3), f"{f} is not {W}x{H}")
+        check(len(ticks) == FLY_FRAMES and loads > 0 and deepest > 0
+              and launches.get("trace", 0) > 0 and launches.get("select_candidates", 0) > 0,
+              f"fly: {len(ticks)} frames, {summary}, launches {launches}")
+        phase("20 fly", f"{card}: cli fly {W}x{H}, {FLY_FRAMES} frames in {secs:.1f} s "
+              f"(process): tick median {float(np.median(ticks)):.0f} ms (first 10 "
+              f"{float(np.median(ticks[:10])):.0f}, last 10 {float(np.median(ticks[-10:])):.0f});"
+              f" {summary}; {len(saved)} PNGs of {W}x{H}; launches {launches}; "
+              f"ticks ms {ticks}")
+
+        # 21. The HTTP viewer over that world: the page, frames, steps with
+        #     movement and toggles, an Open of deep10.rsvo and a Regenerate.
+        kernels.reset_launches()  # the viewer's count covers its Session's start
+        sess = Session(World.load_world(world_dir, asset_root=assets), W, H, device=dev)
+        server = ViewerServer(sess)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        steps = [{"forward": 1.0, "right": 0.5 * (i % 2), "look": [30, 0] if i == 3 else [0, 0],
+                  "shadows": i != 5, "show_steps": i == 6, "show_hits": i == 7,
+                  "feedback_every": 2 if i == 4 else 1, "octree_depth": DEPTH}
+                 for i in range(VIEW_STEPS)]
+        plan = ([("GET", "/", None), ("GET", "/frame.png", None)]
+                + [("POST", "/step", b) for b in steps]
+                + [("POST", "/open", {"path": rsvo_path}),
+                   ("POST", "/regenerate", {"chunk_depth": GEN_LOCK_DEPTH, "structures": True})])
+        latencies = []
+        try:
+            for method, path, body in plan:
+                data = None if body is None else json.dumps(body).encode()
+                req = urllib.request.Request(base + path, data=data, method=method)
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, reply = r.status, r.read()
+                latencies.append((f"{method} {path}", round((time.perf_counter() - t0) * 1e3, 1)))
+                check(status == 200, f"{method} {path} answered {status}")
+                if path in ("/open", "/regenerate"):
+                    msg = json.loads(reply)["message"]
+                    check(msg.startswith("loaded" if path == "/open" else "regenerated"), msg)
+                if method == "POST" or path == "/frame.png":
+                    with urllib.request.urlopen(base + "/frame.png", timeout=60) as r:
+                        check(r.status == 200 and decode_png(r.read()).shape == (H, W, 3),
+                              f"the frame after {path} is not a {W}x{H} PNG")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        record("viewer", launches)
+        check(all(launches.get(k, 0) > 0 for k in ("trace", "raygen", "shade_encode",
+                                                   "select_candidates", "block_grid")),
+              f"viewer launched {launches}")
+        phase("21 viewer", f"{card}: {W}x{H} Session behind ThreadingHTTPServer: every "
+              f"answer 200 and every frame a {W}x{H} PNG; latency ms {latencies}; "
+              f"launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

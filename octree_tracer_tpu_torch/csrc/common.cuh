@@ -24,10 +24,10 @@ inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kBlock - 1) / kBlock);
 }
 
-// 2^e as a float built from its exponent bits, exact for -126 <= e <= 127
-// (1/exp2(d) in JAX); the same bits as the plain versions' `_pow2`.
-__device__ __forceinline__ float pow2(int e) {
-  return __int_as_float(static_cast<int>(static_cast<unsigned>(e + 127) << 23));
-}
+// 2^e as a float for a normal power, -126 <= e <= 127, built from its
+// exponent bits: exact. Out of that range the field wraps (0 at -127, -inf
+// at -128), so callers keep e inside it; K1's descent halves its cell size
+// level by level instead (csrc/trace.cu).
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((e + 127) << 23); }
 
 }  // namespace ot

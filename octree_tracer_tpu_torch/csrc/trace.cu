@@ -229,13 +229,18 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       for (int k = 0; k < 3; ++k) cp[k] = w.c[k];
       if (kCombined) skw = decode_skip(w.skip, oct);
     }
+    // inv1 = 2^-(depth + 1), the child's half side: set from the bits where
+    // the descent starts (at most 32 levels down) and halved at each level,
+    // which is exact into the subnormals and rounds 2^-150 to 0, as the
+    // plain version's `_pow2`. A pool whose pointers cycle can send a
+    // descent past 126 levels, where the exponent bits alone would wrap.
+    float inv1 = ot::pow2(-(depth + 1));
 
     for (int it = 0; it < a.max_iters; ++it) {
       const int32_t depth1 = depth + 1;
       bool pb[3];
       for (int k = 0; k < 3; ++k) pb[k] = STRICT ? v[k] > cp[k] : v[k] >= cp[k];
       const int child = pb[0] * 4 + pb[1] * 2 + pb[2];
-      const float inv1 = ot::pow2(-depth1);
       float np[3];
       for (int k = 0; k < 3; ++k) np[k] = cp[k] + (pb[k] ? inv1 : -inv1);
       const int32_t idx = node + child;
@@ -257,6 +262,7 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       if (payload < ot::kVoxelOffset) {  // interior: descend
         node = static_cast<int32_t>(payload);
         depth = depth1;
+        inv1 *= 0.5f;
         for (int k = 0; k < 3; ++k) cp[k] = np[k];
         continue;
       }
@@ -340,6 +346,7 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       if (in_parent) continue;
       node = w.valid ? w.index : 0;
       depth = w.valid ? w.depth : 0;
+      inv1 = ot::pow2(-(depth + 1));
       for (int k = 0; k < 3; ++k) cp[k] = w.valid ? w.c[k] : 0.0f;
     }
   }
@@ -357,9 +364,11 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
   }
 }
 
-// One warp a tile, in a grid of all tiles.
+// One warp a tile, in a grid of all tiles. Five resident blocks an SM (40
+// warps) hold the primary instantiations to 48 registers, where they
+// otherwise take 51 and fit four (PERF.md §6).
 template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
-__global__ void __launch_bounds__(ot::kBlock) trace_kernel(const TraceArgs a) {
+__global__ void __launch_bounds__(ot::kBlock, 5) trace_kernel(const TraceArgs a) {
   const int lane = threadIdx.x & 31;
   const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
   if (tile >= a.n_tiles) return;

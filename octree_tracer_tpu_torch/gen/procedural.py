@@ -8,21 +8,23 @@ cell above is outside. On a CUDA device that grid comes out of kernel K7
 out of the plain PyTorch version, evaluated in x-slabs to bound memory as
 ``procedural.py:60-78`` does. The host then builds the chunk's octree with
 the native dense builder (``native.build_dense``), or without the native
-library with ``scenes.build_octree_leaves``, the same breadth-first morton
+library with ``io.vox.build_octree_leaves``, the same breadth-first morton
 layout in NumPy.
 
 ``Procedural.dispatch_chunk`` enqueues K7 and a non-blocking copy of its
 words into pinned host memory with a CUDA event; ``finish_chunk`` waits on
 that event and builds the tree, so ``World.generate_world`` overlaps the
-next chunk's SDF with this chunk's host build.
-
-Not ported: the structure stamps (``structures=True``), which need the
-``.vox`` structure loader of the io slice and its assets.
+next chunk's SDF with this chunk's host build. With ``structures=True`` it
+then stamps trees and crystals on the chunk's grass cells
+(``gen/structures.py``), which it reads from the packed words already in
+host memory, seeded by ``settings.seed ^ crc32(chunk position)`` as the JAX
+``Procedural._stamp`` seeds them.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,7 +33,7 @@ import torch
 from .. import kernels, native
 from ..core.cpu_octree import CpuOctree
 from ..core.voxel import CHUNK_OFFSET
-from ..scenes import build_octree_leaves
+from ..io.vox import build_octree_leaves
 from ..state import narrow_u32
 from .sdf import BASE_SCALE, SPIKE_SCALE, island_sdf
 
@@ -212,18 +214,22 @@ def block_grid(pos, chunk_depth: int, base_depth: int, device="cuda") -> torch.T
 
 class Procedural:
     """Chunk generator. ``device`` defaults to the card; ``"cpu"`` runs the
-    plain versions. ``timings`` keeps, per finished chunk, the seconds spent
-    waiting for the grid (K7 and its readback, past what overlapped) and
-    building the tree, and the node count."""
+    plain versions. ``structures`` stamps props after the terrain (a
+    crystal on the chunk-centre grass column, trees on
+    ``tree_probability`` of the other grass cells). ``timings`` keeps, per
+    finished chunk, the seconds spent waiting for the grid (K7 and its
+    readback, past what overlapped), building the tree and stamping, the
+    blocks stamped and the node count. ``asset_root`` (the port's) holds the
+    ``structures/`` the stamps load."""
 
     def __init__(self, chunk_depth: int = 9, settings: GenSettings | None = None,
-                 structures: bool = False, device="cuda"):
-        if structures:
-            raise NotImplementedError(
-                "structures need the .vox structure loader of the io slice "
-                "(gen/structures.py loads them through io.vox.load_structure)")
+                 structures: bool = False, tree_probability: float = 0.01,
+                 device="cuda", asset_root: str | None = None):
         self.chunk_depth = chunk_depth
         self.settings = settings or GenSettings()
+        self.structures = structures
+        self.tree_probability = tree_probability
+        self.asset_root = asset_root
         self.device = kernels.resolve_device(device)
         self.timings: list[dict] = []
 
@@ -244,12 +250,12 @@ class Procedural:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
             words = host
-        return kind, words, ready
+        return kind, words, ready, _pos_array(pos)
 
     def finish_chunk(self, handle) -> CpuOctree | None:
-        """Wait for a ``dispatch_chunk`` handle and build the chunk's tree;
-        None for an empty chunk."""
-        kind, words, ready = handle
+        """Wait for a ``dispatch_chunk`` handle, build the chunk's tree and
+        stamp its structures; None for an empty chunk."""
+        kind, words, ready, pos = handle
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
@@ -262,9 +268,32 @@ class Procedural:
                 chunk = CpuOctree.from_arrays(ptrs, vals, copy=False)
         else:
             chunk = self._grid_to_tree(data)
-        self.timings.append({"wait_s": t1 - t0, "build_s": time.perf_counter() - t1,
+        t2 = time.perf_counter()
+        stamped = 0
+        if chunk is not None and self.structures:
+            from .structures import grass_cells_from_packed
+
+            if kind == "packed":
+                grass = grass_cells_from_packed(data, self.chunk_depth)
+            else:
+                grass = np.argwhere(data == BLOCK_GRASS).astype(np.int32)
+            stamped = self._stamp(chunk, grass, pos)
+        self.timings.append({"wait_s": t1 - t0, "build_s": t2 - t1,
+                             "stamp_s": time.perf_counter() - t2, "stamped": stamped,
                              "nodes": 0 if chunk is None else len(chunk)})
         return chunk
+
+    def _stamp(self, chunk: CpuOctree, grass_cells: np.ndarray, pos) -> int:
+        """Place structures on the chunk's grass cells, deterministically per
+        (settings.seed, chunk position): the seed is ``settings.seed`` xor
+        the crc32 of the position's f32 bytes, stable across Python builds.
+        Returns the blocks stamped."""
+        from .structures import place_structures
+
+        seed = int(self.settings.seed) ^ zlib.crc32(np.asarray(pos, np.float32).tobytes())
+        return place_structures(chunk, grass_cells, self.chunk_depth, seed=seed,
+                                probability=self.tree_probability,
+                                asset_root=self.asset_root)
 
     def generate_chunk(self, pos, base_depth: int) -> CpuOctree | None:
         """The chunk whose cell corner sits at world ``pos`` with cell size

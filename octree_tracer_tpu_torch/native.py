@@ -11,8 +11,10 @@ it. Importing this module builds nothing. Without a compiler,
 
 Bound here: the batch adaptive engine (``otc_process_subdivision`` and
 ``otc_process_unsubdivision``, driven by ``app.native_engine``), the mip
-tree (``patch_refs``, ``mip_tree``, used by ``world.World``) and the dense
-chunk build (``build_dense``, used by ``gen.procedural``).
+tree (``patch_refs``, ``mip_tree``, used by ``world.World``), the dense
+chunk build (``build_dense``, used by ``gen.procedural``) and the batch
+leaf insert into an existing chunk (``stamp_leaves``, used by
+``gen.structures``).
 """
 
 from __future__ import annotations
@@ -107,6 +109,11 @@ def load():
     lib.otc_patch_refs.restype = None
     lib.otc_build_dense.restype = ctypes.c_void_p
     lib.otc_build_dense.argtypes = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32]
+    lib.otc_stamp_leaves.restype = ctypes.c_void_p
+    lib.otc_stamp_leaves.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64, ctypes.c_uint32]
     lib.otc_buf_len.restype = ctypes.c_uint64
     lib.otc_buf_len.argtypes = [ctypes.c_void_p]
     lib.otc_buf_copy.restype = None
@@ -165,6 +172,38 @@ def mip_tree(pointers: np.ndarray, values: np.ndarray) -> int:
     ))
 
 
+def _take_buf(lib, h) -> tuple[np.ndarray, np.ndarray]:
+    """Copy a library buffer out as (pointers, values) and free it."""
+    n = lib.otc_buf_len(h)
+    ptrs = np.empty(n, dtype=np.uint32)
+    vals = np.empty(n, dtype=np.uint32)
+    lib.otc_buf_copy(h, _u32p(ptrs), _u32p(vals))
+    lib.otc_buf_free(h)
+    return ptrs, vals
+
+
+def stamp_leaves(ptrs: np.ndarray, vals: np.ndarray, pos: np.ndarray,
+                 leaf_ptrs: np.ndarray, leaf_vals: np.ndarray,
+                 depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """Insert leaves (``leaf_ptrs[i]``, ``leaf_vals[i]``) at the positions
+    ``pos`` f32[M, 3] and ``depth``, in order, into a copy of the tree
+    (``ptrs``, ``vals``); returns the new (pointers, values), the arrays a
+    ``CpuOctree.put_in_block`` loop in the same order leaves."""
+    lib = load()
+    ptrs = np.ascontiguousarray(ptrs, dtype=np.uint32)
+    vals = np.ascontiguousarray(vals, dtype=np.uint32)
+    pos = np.ascontiguousarray(pos, dtype=np.float32).reshape(-1, 3)
+    leaf_ptrs = np.ascontiguousarray(leaf_ptrs, dtype=np.uint32)
+    leaf_vals = np.ascontiguousarray(leaf_vals, dtype=np.uint32)
+    if not pos.shape[0] == leaf_ptrs.shape[0] == leaf_vals.shape[0]:
+        raise ValueError("pos, leaf_ptrs and leaf_vals must have one entry per leaf")
+    if ptrs.shape != vals.shape:
+        raise ValueError("ptrs and vals must have the same length")
+    h = lib.otc_stamp_leaves(_u32p(ptrs), _u32p(vals), ptrs.shape[0], _f32p(pos),
+                             _u32p(leaf_ptrs), _u32p(leaf_vals), pos.shape[0], depth)
+    return _take_buf(lib, h)
+
+
 def build_dense(packed: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]:
     """Level-synchronous octree build from a 2-bit-packed S^3 block-id grid
     (S = 2^depth, flat C-order cells, 16 per u32, cell i in bits
@@ -181,10 +220,4 @@ def build_dense(packed: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]
     if packed.shape[0] != expect:
         raise ValueError(f"packed grid has {packed.shape[0]} words, "
                          f"expected {expect} for depth {depth}")
-    h = lib.otc_build_dense(_u32p(packed), ctypes.c_uint32(depth))
-    n = lib.otc_buf_len(h)
-    ptrs = np.empty(n, dtype=np.uint32)
-    vals = np.empty(n, dtype=np.uint32)
-    lib.otc_buf_copy(h, _u32p(ptrs), _u32p(vals))
-    lib.otc_buf_free(h)
-    return ptrs, vals
+    return _take_buf(lib, lib.otc_build_dense(_u32p(packed), ctypes.c_uint32(depth)))

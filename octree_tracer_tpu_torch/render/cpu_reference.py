@@ -1,9 +1,10 @@
-"""NumPy oracle traversal: the JAX package's ``render/cpu_reference.py``
-``trace_rays``, copied so that the port checks its kernels against the oracle
-without importing any module of that package (a test holds the copy equal to
-the original). Float32 slab entry into the [-1, 1]^3 root cube, re-descent
-from the root after every boundary step (2e-6 face nudge), the 100-step cap
-and the strict ``>`` descent by default.
+"""NumPy oracle: the JAX package's ``render/cpu_reference.py`` (``trace_rays``,
+``shade`` and ``render_frame``), copied so that the port checks its kernels
+against the oracle, and ``app.headless`` renders with it, without importing
+any module of that package (tests hold the copy equal to the original).
+Float32 slab entry into the [-1, 1]^3 root cube, re-descent from the root
+after every boundary step (2e-6 face nudge), the 100-step cap and the
+strict ``>`` descent by default.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ F = np.float32
 _EPS_DIR = F(1e-6)
 _EPS_NUDGE = F(2e-6)
 MAX_STEPS = 100
+DEFAULT_SUN = (-1.7, -1.0, 0.8)
 
 
 def _in_bounds(v: np.ndarray) -> np.ndarray:
@@ -191,3 +193,92 @@ def trace_rays(
         "steps": out_steps,
         "depth": out_depth,
     }
+
+
+def shade(
+    words: np.ndarray,
+    result: dict,
+    sun_dir=DEFAULT_SUN,
+    shadows: bool = True,
+    show_steps: bool = False,
+    visits: np.ndarray | None = None,
+    max_steps: int = MAX_STEPS,
+    gamma: float = 2.2,
+):
+    """Shade traced rays (reference: src/shader.wgsl:251-305): ambient 0.3 +
+    lambertian vs the sun, optional 1-bounce shadow ray, miss -> 0.2 grey,
+    forced step-cap hits -> red, gamma out (2.2, or 1.0 under misc_bool).
+    Returns f32[N,3] colours."""
+    n = result["hit"].shape[0]
+
+    if show_steps:
+        g = result["steps"].astype(F) / F(64.0)
+        colour = np.stack([g, g, g], axis=-1)
+        return np.clip(colour, F(0.0), F(1.0)) ** F(gamma)
+
+    colour = np.full((n, 3), F(0.2))
+    hit = result["hit"]
+    sun = np.asarray(sun_dir, dtype=F)
+    sun = sun / F(np.linalg.norm(sun))
+
+    diffuse = np.maximum((result["normal"] * -sun).sum(axis=-1), F(0.0)).astype(F)
+
+    if shadows and hit.any():
+        # Shadow ray: origin offset 2.5e-6 along the normal, direction -sun;
+        # shadow rays are "primary" in the reference and bump counters too
+        # (reference: src/shader.wgsl:275-280).
+        hp = (result["hit_pos"][hit] + result["normal"][hit] * F(2.5e-6)).astype(F)
+        sh = trace_rays(
+            words,
+            hp,
+            np.broadcast_to(-sun, (int(hit.sum()), 3)),
+            max_steps=max_steps,
+            visits=visits,
+        )
+        diffuse_hit = diffuse[hit]
+        diffuse_hit[sh["hit"]] = F(0.0)
+        diffuse[hit] = diffuse_hit
+
+    payload = (words[np.maximum(result["index"], 0)] >> np.uint32(4)).astype(np.uint32)
+    rgb24 = payload - np.uint32(VOXEL_OFFSET)
+    base = (
+        np.stack([(rgb24 >> 16) & 0xFF, (rgb24 >> 8) & 0xFF, rgb24 & 0xFF], axis=-1)
+        .astype(F)
+        / F(255.0)
+    )
+    lit = (F(0.3) + diffuse)[:, None] * base
+    colour = np.where(hit[:, None], lit, colour)
+    # Step-cap overflow renders red (reference: src/shader.wgsl:242-244).
+    colour = np.where(
+        result["forced"][:, None], np.array([1.0, 0.0, 0.0], dtype=F), colour
+    )
+    return np.clip(colour, F(0.0), F(1.0)) ** F(gamma)
+
+
+def render_frame(
+    words: np.ndarray,
+    origin,
+    dirs,
+    sun_dir=DEFAULT_SUN,
+    shadows: bool = True,
+    show_steps: bool = False,
+    with_visits: bool = False,
+    strict_descent: bool = True,
+    gamma: float = 2.2,
+):
+    """Full oracle frame: primary trace + shadow + shade.
+
+    ``dirs`` shaped (H, W, 3); returns (image f32[H,W,3], result dict, visits).
+    """
+    dirs = np.asarray(dirs, dtype=F)
+    h, w = dirs.shape[:2]
+    visits = np.zeros(words.shape[0], dtype=np.int64) if with_visits else None
+    result = trace_rays(
+        words, origin, dirs.reshape(-1, 3), visits=visits,
+        strict_descent=strict_descent,
+    )
+    img = shade(
+        words, result, sun_dir=sun_dir, shadows=shadows, show_steps=show_steps,
+        visits=visits, gamma=gamma,
+    )
+    return img.reshape(h, w, 3), result, visits

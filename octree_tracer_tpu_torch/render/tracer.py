@@ -82,9 +82,15 @@ def warp_table_combined(warp_table) -> bool:
 
 
 def _pow2(e: torch.Tensor) -> torch.Tensor:
-    """2^e as f32, exact (float bits built from the exponent), for
-    -126 <= e <= 127."""
-    return ((e.to(_I32) + 127) << 23).view(_F32)
+    """2^e as f32 for e <= 127, built from its bits: exact for every
+    e >= -149 (subnormal below -126), 0 below. A descent through a pool
+    whose pointers cycle can pass 126 levels; past there the plain
+    exponent field would wrap to -inf and then NaN."""
+    e = e.to(_I32)
+    normal = (e.clamp(min=-126) + 127) << 23
+    subnormal = 1 << (e.clamp(-149, -127) + 149)
+    return torch.where(e >= -126, normal,
+                       torch.where(e >= -149, subnormal, 0)).view(_F32)
 
 
 def _in_bounds(v: torch.Tensor) -> torch.Tensor:

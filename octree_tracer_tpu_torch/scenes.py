@@ -6,18 +6,20 @@ random tree for tests. Both build pool words with :func:`build_leaves`, a
 vectorised NumPy replica of the JAX package's ``native.build_leaves`` layout,
 so the port builds the bench's pool word for word without the native library
 or any module of the JAX package. ``shell_world`` is the deep shell as a
-streaming world for the Session. ``build_octree_leaves`` is the JAX package's
-level-synchronous builder (``io/vox.py:93-184``), copied: the breadth-first
-morton layout that the native dense builder also writes, which procedural
-chunks take without the native library.
+streaming world for the Session. ``write_asset_root`` writes a synthetic
+block library and structures in the layout the World and the structure
+stamps read, for runs without the reference's assets.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from .core.cpu_octree import CpuOctree
 from .core.voxel import CHUNK_OFFSET, VOXEL_OFFSET
+from .io.vox import build_octree_leaves
 from .world.world import World
 
 _EMPTY_LEAF = np.uint32(VOXEL_OFFSET << 4)
@@ -78,69 +80,6 @@ def build_leaves(cells: np.ndarray, rgb: np.ndarray, depth: int) -> np.ndarray:
         else:
             words[slot] = (np.uint32(VOXEL_OFFSET) + leaf_rgb) << np.uint32(4)
     return words
-
-
-def _morton_encode(cells: np.ndarray, depth: int) -> np.ndarray:
-    """Interleave (x, y, z) cell coordinates into a morton path key whose
-    3-bit digit per level is (x_bit << 2) | (y_bit << 1) | z_bit, the
-    descent's child index."""
-    m = np.zeros(cells.shape[0], dtype=np.uint64)
-    x = cells[:, 0].astype(np.uint64)
-    y = cells[:, 1].astype(np.uint64)
-    z = cells[:, 2].astype(np.uint64)
-    for level in range(depth):
-        shift = np.uint64(depth - 1 - level)
-        digit = ((((x >> shift) & np.uint64(1)) << np.uint64(2))
-                 | (((y >> shift) & np.uint64(1)) << np.uint64(1))
-                 | ((z >> shift) & np.uint64(1)))
-        m = (m << np.uint64(3)) | digit
-    return m
-
-
-def build_octree_leaves(cells: np.ndarray, leaf_ptrs: np.ndarray,
-                        leaf_vals: np.ndarray, depth: int) -> CpuOctree:
-    """Level-synchronous octree build from integer ``cells`` at ``depth``
-    with arbitrary leaf (pointer, value) payloads: colour voxels
-    (``CHUNK_OFFSET``, rgb) or block references (``CHUNK_OFFSET + id``, 0).
-    The tree of repeated insertion (groups of 8 siblings along every path,
-    empties as (``CHUNK_OFFSET``, 0), a repeated cell keeps its last
-    payload) in breadth-first, morton-sorted layout."""
-    if depth < 1:
-        raise ValueError("octree depth must be >= 1")
-    morton = _morton_encode(cells, depth)
-    order = np.argsort(morton, kind="stable")
-    morton = morton[order]
-    leaf_ptrs = np.asarray(leaf_ptrs, dtype=np.uint32)[order]
-    colors = np.asarray(leaf_vals, dtype=np.uint32)[order]
-    keep = np.ones(morton.shape[0], dtype=bool)
-    keep[:-1] = morton[:-1] != morton[1:]  # keep the last of each run
-    morton, leaf_ptrs, colors = morton[keep], leaf_ptrs[keep], colors[keep]
-
-    # prefixes[L-1]: sorted unique depth-L prefixes; the root group always
-    # exists and level L+1 has one group per occupied depth-L node.
-    prefixes = [np.unique(morton >> np.uint64(3 * (depth - level)))
-                for level in range(1, depth + 1)]
-    group_counts = [1] + [len(p) for p in prefixes[:-1]]
-    starts = np.concatenate([[0], np.cumsum(np.asarray(group_counts) * 8)])
-    total = int(starts[-1])
-    ptr = np.full(total, CHUNK_OFFSET, dtype=np.uint32)
-    val = np.zeros(total, dtype=np.uint32)
-    for level in range(1, depth + 1):
-        p = prefixes[level - 1]
-        child = (p & np.uint64(7)).astype(np.int64)
-        if level == 1:
-            group_base = np.zeros(len(p), dtype=np.int64)
-        else:
-            rank = np.searchsorted(prefixes[level - 2], p >> np.uint64(3))
-            group_base = starts[level - 1] + 8 * rank
-        slots = group_base + child
-        if level < depth:
-            rank_here = np.arange(len(p), dtype=np.int64)
-            ptr[slots] = (starts[level] + 8 * rank_here).astype(np.uint32)
-        else:
-            ptr[slots] = leaf_ptrs
-            val[slots] = colors
-    return CpuOctree.from_arrays(ptr, val)
 
 
 def shell_cells(depth: int) -> tuple[np.ndarray, np.ndarray]:
@@ -204,6 +143,52 @@ def shell_world(depth: int = 10) -> World:
     return world
 
 
+def _blob(rng, side: int, n_colours: int, fill: float) -> tuple[np.ndarray, np.ndarray]:
+    """Cells and colours of a random multi-colour shape in a ``side``^3
+    cube: the cells of a ball of radius ``fill * side / 2`` around the
+    centre, each with one of ``n_colours`` random non-black colours."""
+    g = np.arange(side) + 0.5 - side / 2.0
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    cells = np.argwhere(x * x + y * y + z * z <= (fill * side / 2.0) ** 2)
+    palette = rng.integers(1 << 16, 1 << 24, n_colours).astype(np.uint32)
+    return cells, palette[rng.integers(0, n_colours, cells.shape[0])]
+
+
+def write_asset_root(root: str, seed: int = 0, block_depth: int = 3) -> str:
+    """Write a synthetic asset root under ``root`` and return it: the eight
+    blocks of ``world.BLOCK_NAMES`` as ``blocks/<name>.vox``, each a
+    multi-colour ball of side ``2^block_depth``, and ``structures/tree.vox``
+    (a trunk and a crown) and ``structures/crystal.vox`` (a column), whose
+    colours are block ids 2-6 once loaded (``io.vox.load_structure``)."""
+    from .io.vox_export import save_vox
+    from .world.world import BLOCK_NAMES
+
+    rng = np.random.default_rng(seed)
+    side = 1 << block_depth
+    os.makedirs(os.path.join(root, "blocks"), exist_ok=True)
+    os.makedirs(os.path.join(root, "structures"), exist_ok=True)
+    for i, name in enumerate(BLOCK_NAMES):
+        cells, rgb = _blob(rng, side, 2 + i % 4, 0.7 + 0.04 * i)
+        tree = build_octree_leaves(cells, np.full(cells.shape[0], CHUNK_OFFSET), rgb,
+                                   block_depth)
+        with open(os.path.join(root, "blocks", f"{name}.vox"), "wb") as f:
+            f.write(save_vox(tree, block_depth))
+    # Structures: 16^3 models; colour k of the sorted palette loads as block k + 2.
+    trunk = [(8, y, 8) for y in range(6)]
+    crown = [(x, y, z) for x in range(5, 12) for y in range(6, 11) for z in range(5, 12)
+             if (x - 8) ** 2 + (y - 8) ** 2 + (z - 8) ** 2 <= 10]
+    column = [(8, y, 8) for y in range(12)] + [(7, y, 8) for y in range(3, 9)]
+    shapes = {"tree": (trunk + crown, [0x402010] * len(trunk) + [0x20A020] * len(crown)),
+              "crystal": (column, [0x80C0F0 + 0x10 * (y % 3) for _, y, _ in column])}
+    for name, (cells, rgb) in shapes.items():
+        tree = build_octree_leaves(np.array(cells, np.uint32),
+                                   np.full(len(cells), CHUNK_OFFSET),
+                                   np.array(rgb, np.uint32), 4)
+        with open(os.path.join(root, "structures", f"{name}.vox"), "wb") as f:
+            f.write(save_vox(tree, 4))
+    return root
+
+
 def random_scene(depth: int, n_voxels: int, seed: int) -> np.ndarray:
     """Pool words of ``n_voxels`` random cells (repeats allowed) with random
     non-empty colours at ``depth``, drawn from ``seed``."""
@@ -222,9 +207,10 @@ def _ptr(node: int) -> np.uint32:
 
 
 def malformed_pools() -> dict[str, np.ndarray]:
-    """Pools whose pointers run past their end, as no well-formed tree's do.
-    JAX reads them with a clamped row gather (``render/tracer.py``
-    ``_row_read``), and the port is held to it:
+    """Pools whose pointers run past their end or cycle, as no well-formed
+    tree's do. JAX reads them with a clamped row gather
+    (``render/tracer.py`` ``_row_read``), and the port is held to it (and,
+    for ``self_cycle``, to the NumPy oracle):
 
     - ``past_end16``: 16 words. Every root child points at group 16, past
       the end, so every descent reads row 1: seven empty leaves and, last, a
@@ -235,11 +221,16 @@ def malformed_pools() -> dict[str, np.ndarray]:
       holds leaves and a pointer to node 19, inside row 2 but off its start.
     - ``moved_random``: ``random_scene(5, 300, 1)`` with every 7th interior
       pointer moved 2^15 words past the end, onto the last row (leaves).
+    - ``self_cycle``: 8 words, a root group whose child 0 is a filled leaf
+      and whose other children point back at the root. A descent ends only
+      at child 0; once the cell's centre stops moving in f32 (its half
+      side under half an ulp of the centre), a ray whose position is above
+      the centre on some axis takes the same child forever, passes 126
+      levels, where the powers of two turn subnormal and then 0, and runs
+      to the loop's cap.
 
     Past the end of a pool whose length is no multiple of 8, a row reads 0,
-    a pointer to the root; descents that keep returning there grow deeper
-    than 126 levels, past where K1's powers of two are exact, so the pools
-    that rays trace here return there only a few times.
+    a pointer to the root.
     """
     empty = np.uint32(VOXEL_OFFSET << 4)
     past_end16 = np.array([_ptr(16)] * 8 + [empty] * 7 + [_leaf(0x30C050)],
@@ -252,4 +243,6 @@ def malformed_pools() -> dict[str, np.ndarray]:
     moved = random_scene(5, 300, 1)
     interior = np.nonzero((moved >> np.uint32(4)) < VOXEL_OFFSET)[0]
     moved[interior[::7]] = _ptr(moved.shape[0] + (1 << 15))
-    return {"past_end16": past_end16, "ragged21": ragged21, "moved_random": moved}
+    self_cycle = np.array([_leaf(0xD0A040)] + [_ptr(0)] * 7, dtype=np.uint32)
+    return {"past_end16": past_end16, "ragged21": ragged21, "moved_random": moved,
+            "self_cycle": self_cycle}

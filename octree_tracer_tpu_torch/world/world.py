@@ -9,8 +9,8 @@ library. Chunk files are ``<dir>/<id>.bin`` in ``cpu_octree.BIN_DTYPE``
 layout. ``wait_for_loads`` is the port's addition, for runs that step two
 Sessions in lockstep.
 
-Not ported yet: the block library from ``.vox`` assets (``load_blocks``,
-which needs the ``io`` loaders).
+The block library is chunks 1-8, loaded from ``<asset_root>/blocks/<name>.vox``
+(``BLOCK_NAMES``) with their mip trees, as the JAX ``World`` loads it.
 """
 
 from __future__ import annotations
@@ -27,20 +27,48 @@ from ..core.cpu_octree import CpuOctree
 from ..core.voxel import CHUNK_OFFSET, child_offset
 
 
-class World:
-    """Chunk store."""
+BLOCK_NAMES = [
+    "stone", "dirt", "grass", "wood", "leaf", "slate", "crystal", "glass",
+]  # ids 1..8
 
-    def __init__(self, path: str = "", load_blocks: bool = False,
-                 verbose: bool = False):
-        if load_blocks:
-            raise NotImplementedError(
-                "the block library needs the .vox loader, not ported yet")
+# The directory that holds blocks/ and structures/ (and files/ for the CLI's
+# bench scene): OT_ASSET_ROOT, read once, at import, as the JAX package reads
+# it. There is no default; a caller may pass ``asset_root`` instead.
+DEFAULT_ASSET_ROOT = os.environ.get("OT_ASSET_ROOT") or None
+
+
+def resolve_asset_root(asset_root: str | None = None) -> str:
+    """``asset_root`` if given, else ``OT_ASSET_ROOT`` as read at import.
+    Raises FileNotFoundError when neither names a directory."""
+    root = asset_root or DEFAULT_ASSET_ROOT
+    if not root:
+        raise FileNotFoundError(
+            "no asset root: set OT_ASSET_ROOT or pass asset_root")
+    return root
+
+
+class World:
+    """Chunk store with the 8-block library preloaded (``load_blocks``)."""
+
+    def __init__(self, path: str = "", asset_root: str | None = None,
+                 load_blocks: bool = True, verbose: bool = False):
         self.path = path
+        # The port's: a Regenerate reuses it. None when neither it nor
+        # OT_ASSET_ROOT is given; loading blocks then raises.
+        self.asset_root = asset_root or DEFAULT_ASSET_ROOT
         self.chunks: dict[int, CpuOctree] = {}
         self.loading: set[int] = set()
         self._lock = threading.Lock()
         self._pool = ThreadPoolExecutor(max_workers=2)
         self.verbose = verbose
+
+        if load_blocks:
+            from ..io import load_file
+
+            root = resolve_asset_root(asset_root)
+            for i, name in enumerate(BLOCK_NAMES, start=1):
+                self.chunks[i] = load_file(os.path.join(root, "blocks", f"{name}.vox"))
+                self.generate_mip_tree(i)
 
     @classmethod
     def load_world(cls, path: str, **kw) -> "World":

@@ -223,7 +223,7 @@ def test_default_corners_are_generate_worlds(tmp_path):
             return None
 
     rec = Recorder()
-    World().generate_world(str(tmp_path / "w"), rec, world_depth=1)
+    World(load_blocks=False).generate_world(str(tmp_path / "w"), rec, world_depth=1)
     assert rec.corners == [(c, 1) for c in DEFAULT_CORNERS]
     assert kernel_steps.CORNERS == DEFAULT_CORNERS
 
@@ -272,9 +272,13 @@ def test_generate_chunk_equals_jax(path, monkeypatch, fast_jax_gen):
     assert empty is None
 
 
-def test_procedural_device_and_structures(monkeypatch):
-    with pytest.raises(NotImplementedError, match="io slice"):
-        procedural.Procedural(chunk_depth=4, structures=True, device="cpu")
+def test_procedural_device_and_structures(monkeypatch, tmp_path):
+    """Structures need their asset files, as JAX's do: a chunk with grass
+    and no ``structures/`` raises; the device defaults to the card."""
+    missing = procedural.Procedural(chunk_depth=5, structures=True, tree_probability=1.0,
+                                    device="cpu", asset_root=str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        missing.generate_chunk((-1.0, -1.0, -1.0), 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         procedural.Procedural(chunk_depth=4)
@@ -293,9 +297,9 @@ def generated(tmp_path, monkeypatch):
         JWorld(load_blocks=False).generate_world(
             str(tmp_path / "jax"), jproc.Procedural(chunk_depth=4), world_depth=1)
     done = []
-    World().generate_world(str(tmp_path / "port"),
-                           procedural.Procedural(chunk_depth=4, device="cpu"), world_depth=1,
-                           progress=lambda i, n: done.append((i, n)))
+    World(load_blocks=False).generate_world(
+        str(tmp_path / "port"), procedural.Procedural(chunk_depth=4, device="cpu"),
+        world_depth=1, progress=lambda i, n: done.append((i, n)))
     assert done[-1] == (8, 8)
     return tmp_path
 
@@ -306,7 +310,7 @@ def test_generate_world_files_equal_jax(generated):
     assert len(files) > 2
     for f in files:
         assert (generated / "port" / f).read_bytes() == (generated / "jax" / f).read_bytes(), f
-    w = World.load_world(str(generated / "port"))
+    w = World.load_world(str(generated / "port"), load_blocks=False)
     jw = JWorld.load_world(str(generated / "jax"), load_blocks=False)
     np.testing.assert_array_equal(w.chunks[0].pointers, jw.chunks[0].pointers)
     np.testing.assert_array_equal(w.chunks[0].values, jw.chunks[0].values)
@@ -326,7 +330,7 @@ def test_session_on_generated_world_equals_jax(generated):
     together, each waiting for its chunk loads after a step: equal images,
     stats, pools and resident chunks at every step, through chunk loads and,
     after the turn, collapses and evictions."""
-    a = Session(World.load_world(str(generated / "port")), 32, 32, pool_capacity=65536,
+    a = Session(World.load_world(str(generated / "port"), load_blocks=False), 32, 32, pool_capacity=65536,
                 device="cpu")
     b = JSession(JWorld.load_world(str(generated / "port"), load_blocks=False), 32, 32,
                  pool_capacity=65536)
@@ -357,3 +361,107 @@ def test_session_on_generated_world_equals_jax(generated):
             totals[k] += st_a[k]
     assert loads > 0 and totals["subdivided"] > 0
     assert evictions > 0 and totals["collapsed"] > 0
+
+
+@pytest.fixture(scope="module")
+def asset_root(tmp_path_factory):
+    """A synthetic asset root, the same for both packages; JAX's structure
+    loader binds its root at import, so the test hands it this one."""
+    from octree_tracer_tpu_torch import scenes
+
+    return scenes.write_asset_root(str(tmp_path_factory.mktemp("assets")), seed=5)
+
+
+@pytest.fixture
+def jax_structures(asset_root, monkeypatch):
+    from octree_tracer_tpu.gen import structures as jst
+    from octree_tracer_tpu_torch.gen import structures as tst
+
+    load = jst.load_structure_file
+    monkeypatch.setattr(jst, "load_structure_file",
+                        lambda name, root=None: load(name, asset_root))
+    yield jst, tst
+    load.cache_clear()
+    tst.load_structure_file.cache_clear()
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_place_and_stamp_structures_equal_jax(seed, asset_root, jax_structures):
+    """``place_structures`` (crystals on the centre column, seeded trees)
+    and ``stamp_structure`` give the arrays and counts JAX's give, through
+    the native batch insert and through the ``put_in_block`` loop."""
+    jst, tst = jax_structures
+    from octree_tracer_tpu.core import CpuOctree as JCpuOctree
+    from octree_tracer_tpu_torch.core.cpu_octree import CpuOctree
+
+    depth = 5
+    grid = procedural.block_grid_plain((-1.0, -1.0, -1.0), depth, 1).numpy()
+    packed = procedural.pack_grid(torch.from_numpy(grid)).numpy()
+    grass = tst.grass_cells_from_packed(packed, depth)
+    np.testing.assert_array_equal(grass, jst.grass_cells_from_packed(packed.view(np.uint32),
+                                                                     depth))
+    np.testing.assert_array_equal(grass, np.argwhere(grid == procedural.BLOCK_GRASS))
+    ptrs, vals = native.build_dense(packed, depth)
+    for use_native in (True, False):
+        with pytest.MonkeyPatch.context() as m:
+            if not use_native:
+                m.setattr(native, "available", lambda: False)
+            a = CpuOctree.from_arrays(ptrs, vals)
+            b = JCpuOctree.from_arrays(ptrs, vals)
+            na = tst.place_structures(a, grass, depth, seed=seed, probability=0.2,
+                                      asset_root=asset_root)
+            nb = jst.place_structures(b, grass, depth, seed=seed, probability=0.2)
+        assert na == nb > 0
+        np.testing.assert_array_equal(a.pointers, b.pointers)
+        np.testing.assert_array_equal(a.values, b.values)
+    offs, blocks = tst.load_structure_file("tree", asset_root)
+    a = CpuOctree.from_arrays(ptrs, vals)
+    b = JCpuOctree.from_arrays(ptrs, vals)
+    base = np.array([0.1, -0.2, 0.3], np.float32)
+    assert (tst.stamp_structure(a, base, offs, blocks, depth)
+            == jst.stamp_structure(b, base, offs, blocks, depth) > 0)
+    np.testing.assert_array_equal(a.pointers, b.pointers)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_scatter_trees_equals_jax(seed, use_native, asset_root, jax_structures, monkeypatch):
+    """``scatter_trees`` (seeded trees on any grass cell) gives the arrays
+    and count JAX's gives, through the native batch insert and through the
+    ``put_in_block`` loop."""
+    jst, tst = jax_structures
+    from octree_tracer_tpu.core import CpuOctree as JCpuOctree
+    from octree_tracer_tpu_torch.core.cpu_octree import CpuOctree
+
+    depth = 5
+    grid = procedural.block_grid_plain((-1.0, -1.0, -1.0), depth, 1).numpy()
+    packed = procedural.pack_grid(torch.from_numpy(grid)).numpy()
+    grass = tst.grass_cells_from_packed(packed, depth)
+    ptrs, vals = native.build_dense(packed, depth)
+    if not use_native:
+        monkeypatch.setattr(native, "available", lambda: False)
+    a = CpuOctree.from_arrays(ptrs, vals)
+    b = JCpuOctree.from_arrays(ptrs, vals)
+    na = tst.scatter_trees(a, grass, depth, seed=seed, probability=0.3,
+                           asset_root=asset_root)
+    nb = jst.scatter_trees(b, grass, depth, seed=seed, probability=0.3)
+    assert na == nb > 0
+    np.testing.assert_array_equal(a.pointers, b.pointers)
+    np.testing.assert_array_equal(a.values, b.values)
+    assert tst.scatter_trees(a, grass[:0], depth, asset_root=asset_root) == 0
+
+
+def test_generated_world_with_structures_equals_jax(tmp_path, asset_root, jax_structures,
+                                                    fast_jax_gen):
+    """A chunk_depth 5, world_depth 1 world with the block library and
+    structures: every chunk file byte-equal to JAX's, and blocks stamped."""
+    p = procedural.Procedural(chunk_depth=5, structures=True, device="cpu",
+                              asset_root=asset_root)
+    World(asset_root=asset_root).generate_world(str(tmp_path / "port"), p, world_depth=1)
+    JWorld(asset_root=asset_root).generate_world(
+        str(tmp_path / "jax"), jproc.Procedural(chunk_depth=5, structures=True), world_depth=1)
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == files and len(files) == 9
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    assert sum(t["stamped"] for t in p.timings) > 0

@@ -30,12 +30,17 @@ def test_port_imports_with_jax_blocked():
         assert not [m for m in loaded if m.split(".")[0] == "octree_tracer_tpu"]
         from octree_tracer_tpu_torch import kernels, native
         assert kernels._lib is None and native._lib is None
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 18
+    names = set(out.stdout.split())
+    assert len(names) >= 43
+    for mod in ("io", "io.vox", "io.rsvo", "io.rsvo_export", "io.vox_export",
+                "gen.structures", "utils", "utils.timing", "app.headless", "app.cli",
+                "app.viewer"):
+        assert f"octree_tracer_tpu_torch.{mod}" in names
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,7 @@ same inputs, and the deep shell as a streaming world equals the bench pool
 word for word."""
 
 import ctypes
+import json
 import os
 
 import numpy as np
@@ -22,6 +23,7 @@ from octree_tracer_tpu_torch.app import native_engine
 from octree_tracer_tpu_torch.core import voxel
 from octree_tracer_tpu_torch.core.cpu_octree import CpuOctree
 from octree_tracer_tpu_torch.core.octree import Octree, node_depth
+from octree_tracer_tpu_torch.io.vox import build_octree_leaves
 from octree_tracer_tpu_torch.world.world import World
 
 
@@ -211,12 +213,16 @@ def test_world_find_voxel_and_chunk_io(tmp_path):
     a._pool.shutdown(wait=True)
     np.testing.assert_array_equal(a.chunks[2].pointers, chunks[2][0])
     a.save_chunk(0)
-    c = World.load_world(str(tmp_path))
+    c = World.load_world(str(tmp_path), load_blocks=False)
     np.testing.assert_array_equal(c.chunks[0].pointers, chunks[0][0])
     with pytest.raises(FileNotFoundError):
-        World.load_world(str(tmp_path / "missing"))
-    with pytest.raises(NotImplementedError):
-        World(load_blocks=True)
+        World.load_world(str(tmp_path / "missing"), load_blocks=False)
+    # The block library loads by default, as JAX's: from an asset root
+    # without blocks/ it raises as JAX's does.
+    with pytest.raises(FileNotFoundError):
+        World(asset_root=str(tmp_path / "no_assets"))
+    with pytest.raises(FileNotFoundError):
+        JWorld(asset_root=str(tmp_path / "no_assets"))
 
 
 def _engine_run(pkg_octree, world, eng_sub, eng_unsub, seed):
@@ -320,7 +326,7 @@ def test_build_dense_equals_jax_binding(depth):
     np.testing.assert_array_equal(vals, jvals)
     ptrs_i, _ = native.build_dense(packed.view(np.int32), depth)
     np.testing.assert_array_equal(ptrs_i, jptrs)
-    tree = scenes.build_octree_leaves(
+    tree = build_octree_leaves(
         np.argwhere(cells.reshape((1 << depth,) * 3) > 0),
         voxel.CHUNK_OFFSET + cells[cells > 0], np.zeros(int((cells > 0).sum()), np.uint32),
         depth)
@@ -329,3 +335,106 @@ def test_build_dense_equals_jax_binding(depth):
         native.build_dense(packed[:-1], depth)
     with pytest.raises(TypeError):
         native.build_dense(packed.astype(np.float32), depth)
+
+
+@pytest.fixture(scope="module")
+def asset_root(tmp_path_factory):
+    return scenes.write_asset_root(str(tmp_path_factory.mktemp("assets")), seed=3)
+
+
+def test_block_library_equals_jax(asset_root):
+    """``World(load_blocks=True)`` loads ``<asset_root>/blocks/<name>.vox``
+    as chunks 1-8 with their mip trees: every chunk's pointers, values and
+    top mip equal JAX's."""
+    import inspect
+
+    params = inspect.signature(World).parameters
+    assert params["load_blocks"].default is True  # as JAX's
+    from octree_tracer_tpu_torch.world.world import BLOCK_NAMES
+    from octree_tracer_tpu.world.world import BLOCK_NAMES as JBLOCK_NAMES
+
+    assert BLOCK_NAMES == JBLOCK_NAMES
+    a, b = World(asset_root=asset_root), JWorld(asset_root=asset_root)
+    assert sorted(a.chunks) == sorted(b.chunks) == list(range(1, 9))
+    for cid in range(1, 9):
+        np.testing.assert_array_equal(a.chunks[cid].pointers, b.chunks[cid].pointers)
+        np.testing.assert_array_equal(a.chunks[cid].values, b.chunks[cid].values)
+        assert int(a.chunks[cid].top_mip) == int(b.chunks[cid].top_mip)
+    assert a.asset_root == asset_root
+
+
+def test_default_asset_root_reads_the_environment(asset_root):
+    """``DEFAULT_ASSET_ROOT`` comes from ``OT_ASSET_ROOT`` when the module
+    is imported, as JAX's does."""
+    import subprocess
+    import sys
+
+    code = ("from octree_tracer_tpu_torch.world.world import DEFAULT_ASSET_ROOT, World; "
+            "print(DEFAULT_ASSET_ROOT, len(World().chunks))")
+    env = dict(os.environ, OT_ASSET_ROOT=asset_root)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [asset_root, "8"]
+
+
+def test_no_asset_root_reads_nothing_outside_the_repository(tmp_path):
+    """Without ``OT_ASSET_ROOT`` there is no default asset root: ``World()``,
+    a structure load and ``bench`` with no ``--scene`` raise
+    FileNotFoundError naming ``OT_ASSET_ROOT``, and open no file on the
+    way (an audit hook records every open after the imports)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import json, sys
+from octree_tracer_tpu_torch import io, kernels, state
+from octree_tracer_tpu_torch.app import cli, headless
+from octree_tracer_tpu_torch.gen import structures
+from octree_tracer_tpu_torch.render import camera, tracer
+from octree_tracer_tpu_torch.world import world
+opened = []  # the modules above are imported first: their files are read
+sys.addaudithook(lambda ev, a: opened.append(str(a[0])) if ev == "open" else None)
+errors = []
+for call in (world.World, lambda: structures.load_structure_file("tree"),
+             lambda: cli.main(["bench", "--device", "cpu"])):
+    try:
+        call()
+    except FileNotFoundError as e:
+        errors.append(str(e))
+w = world.World(load_blocks=False)
+print(json.dumps([world.DEFAULT_ASSET_ROOT, w.asset_root, errors, opened]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "OT_ASSET_ROOT"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120, cwd=repo)
+    assert out.returncode == 0, out.stderr
+    default, kept, errors, opened = json.loads(out.stdout.splitlines()[-1])
+    assert default is None and kept is None
+    assert len(errors) == 3 and all("OT_ASSET_ROOT" in e for e in errors)
+    assert opened == []
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stamp_leaves_equals_put_in_block_loop(seed):
+    """``native.stamp_leaves`` leaves the arrays a ``put_in_block`` loop in
+    the same order leaves, and JAX's binding of the same insert does too."""
+    rng = np.random.default_rng(seed)
+    depth = 5
+    base = scenes.chunk_from_words(scenes.random_scene(depth, 200, seed))
+    pos = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    ptrs = voxel.CHUNK_OFFSET + rng.integers(1, 9, 300).astype(np.uint32)
+    vals = np.zeros(300, np.uint32)
+    loop = CpuOctree.from_arrays(base.pointers.copy(), base.values.copy())
+    for i in range(300):
+        loop.put_in_block(pos[i], int(ptrs[i] - voxel.CHUNK_OFFSET), depth)
+    got = native.stamp_leaves(base.pointers, base.values, pos, ptrs, vals, depth)
+    np.testing.assert_array_equal(got[0], loop.pointers)
+    np.testing.assert_array_equal(got[1], loop.values)
+    want = jnative.stamp_leaves(base.pointers, base.values, pos, ptrs, vals, depth)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        native.stamp_leaves(base.pointers, base.values, pos, ptrs[:-1], vals, depth)
