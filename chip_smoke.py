@@ -45,7 +45,20 @@ against the NumPy oracle on a subsample, and drives the main paths:
   1920x1080 Session on it: the page, frames, 8 steps with movement and
   toggles, an Open of deep10.rsvo and a Regenerate at chunk_depth 5 (21).
   Each path's launches, counted in its own process (``--launch-counts``),
-  go into the kernels line as ``app_launches``.
+  go into the kernels line as ``app_launches``;
+- the sharded path (22), ``octree_tracer_tpu_torch.parallel`` over
+  ``torch.distributed``: an in-process NCCL group of world size 1 renders
+  phase 8's frame through ``render_frame_sharded``, equal to
+  ``render_frame`` on every pixel, result field and visit (counts and
+  flags), and runs a ``ShardedSession`` of 24 steps equal to phase 11's
+  Session at every step (u8 frames, pools and tables by digest, stats,
+  node_stats, selection offsets); two gloo ranks spawned on the one card
+  (540 rows each) run 24 steps, both equal to phase 11's, and
+  four (270 rows each) render phase 8's frame equal to ``render_frame``;
+  then ``dryrun_multichip(2)``. Each part of the sharded frame (the rank's
+  rows, the visit all-reduce, the frame all-gather, a step message's
+  broadcast) is timed on every rank; each path's launches, counted on each
+  rank, go into the kernels line as ``sharded_launches``.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -72,6 +85,7 @@ PyTorch call that computes the same function, where there is one.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -119,6 +133,8 @@ GEN_LOCK_DEPTH, GEN_LOCK_STEPS, GEN_LOCK_TURN = 5, 12, 8
 # the CLI's fly, and the viewer's steps.
 APP_VOX_DEPTH, APP_GEN_ID = 8, 1 << 30
 FLY_FRAMES, VIEW_STEPS = 30, 8
+# Phase 22: calls of each part of the sharded frame timed.
+SHARD_TIMED = 10
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12
@@ -215,6 +231,22 @@ def profile_frames(fn, reps: int):
                                         getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3)
                         for e in prof.key_averages()), key=lambda kv: -kv[1])
     return [kv for kv in by_kernel if kv[1] > 0], (busy / window if window else 0.0)
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes ("none" for None)."""
+    if t is None:
+        return "none"
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def step_record(sess, host_img, stats, ms) -> dict:
+    """What a Session step left: the u8 frame's, the pool's and the table's
+    digests, the stats, node_stats, the selection offset and the step ms."""
+    return {"img": digest(host_img), "pool": digest(sess.device_words),
+            "table": digest(sess._warp_table), "stats": stats,
+            "node_stats": sess.node_stats(), "sel_offset": sess._sel_offset, "ms": ms}
 
 
 def nvidia_smi(query: str) -> str:
@@ -626,10 +658,11 @@ def run(dev: torch.device) -> int:
           f"frame by kernel: {profile}; device busy {busy:.3f} of the window from "
           f"the first kernel's start to the last one's end")
 
-    session_phases(dev, report, words, origins, dirs, table, res_k, card)
+    ref = session_phases(dev, report, words, origins, dirs, table, res_k, card)
     gen_phases(dev, report, card)
     probe_phase(dev, report)
     app_phases(dev, report, card)
+    sharded_phases(dev, report, card, words, table, ci, ref)
 
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -638,9 +671,11 @@ def run(dev: torch.device) -> int:
     return 0
 
 
-def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> None:
+def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> list:
     """Phases 9-12: visit marking, candidate selection and the visit closure
-    against their plain versions, then the Session on the card."""
+    against their plain versions, then the Session on the card. Returns
+    phase 11's step records (``step_record``), which phase 22 holds the
+    sharded Sessions to."""
     from octree_tracer_tpu_torch import kernels, scenes, state
     from octree_tracer_tpu_torch.adaptive import feedback
     from octree_tracer_tpu_torch.app.session import Session
@@ -785,13 +820,14 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> Non
     check(sess.use_native, "the native host engine did not build")
     setup_s = time.perf_counter() - t0
     kernels.reset_launches()
-    step_ms, rode, warped_steps = [], 0, []
+    step_ms, rode, warped_steps, ref = [], 0, [], []
     totals = {"subdivided": 0, "collapsed": 0, "patched": 0}
     for i in range(SESSION_STEPS):
         t0 = time.perf_counter()
         img, _, stats = sess.step()
-        img.cpu()  # the viewer's u8 frame fetch
+        host = img.cpu()  # the viewer's u8 frame fetch
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        ref.append(step_record(sess, host, stats, step_ms[-1]))
         if sess._frame_warped:
             rode += 1
             warped_steps.append(i)
@@ -819,6 +855,7 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> Non
           f"the table {rode} (steps {warped_steps}); stale dropped "
           f"{sess.stale_dropped}; launches {launches}; step ms "
           f"{[round(t, 1) for t in step_ms]}")
+    del sess, world
 
     # 12. A CPU Session (plain versions) and a CUDA Session (kernels) in
     #     lockstep; the table from the first frame, so K2 and K6 take part.
@@ -849,6 +886,7 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> Non
           f"depth {LOCK_DEPTH}, {LOCK_RES[0]}x{LOCK_RES[1]}, {LOCK_STEPS} steps, "
           f"totals {lock_totals}, nodes {len(pair[1].octree)}, counted frames "
           f"on the table {pair[1]._frame_warped}")
+    return ref
 
 
 def gen_phases(dev, report, card) -> None:
@@ -1333,6 +1371,272 @@ def app_phases(dev, report, card) -> None:
               f"launches {launches}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean host ms per call of ``fn``, the card synchronised before and
+    after the calls (gloo's collectives wait on the host)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def frame_digests(img, result, visits) -> dict:
+    out = {"img": digest(img), "visits": digest(visits)}
+    out.update({f: digest(getattr(result, f)) for f in result._fields})
+    return out
+
+
+def collective_costs(mesh, words, table, origin, dirs, payload_words=None) -> dict:
+    """ms of the sharded counted frame's parts on this rank, as the Session
+    renders it (shadows, flags, the table, u8), on all ranks together after
+    a barrier (ranks that share a card share its time): the whole frame and
+    the rank's own rows through ``render_frame``, the visit
+    all-reduce (the pool's int32), the frame all-gather (result and image),
+    a step message's broadcast (its head and ``payload_words`` of payload,
+    when given) and the whole ``render_frame_sharded``."""
+    import torch.distributed as dist
+
+    from octree_tracer_tpu_torch.parallel import mesh as pmesh
+    from octree_tracer_tpu_torch.parallel import session as psession
+    from octree_tracer_tpu_torch.render import tracer
+
+    args = dict(shadows=True, warp_table=table, u8_image=True, with_visits=True,
+                visit_flags=True)
+    rows = pmesh.shard_rows(mesh, dirs)
+    img, res, visits = tracer.render_frame(words, origin, rows, **args)
+    buf = torch.zeros_like(visits)
+    parts = {"whole_frame": lambda: tracer.render_frame(words, origin, dirs, **args),
+             "local_frame": lambda: tracer.render_frame(words, origin, rows, **args),
+             "visit_all_reduce": lambda: pmesh.all_reduce_visits(mesh, buf),
+             "frame_all_gather": lambda: pmesh.gather_frame(mesh, img, res),
+             "sharded_frame": lambda: pmesh.render_frame_sharded(mesh, words, origin, dirs,
+                                                                 **args)}
+    if payload_words is not None:
+        head = torch.zeros(psession._HEAD, dtype=torch.int64, device=mesh.device)
+        payload = torch.zeros(max(payload_words, 1), dtype=torch.int32, device=mesh.device)
+        parts["step_broadcast"] = lambda: (mesh.broadcast(head, "timing"),
+                                           mesh.broadcast(payload, "timing"))
+    out = {"rows": rows.shape[0], "pool_words": int(words.shape[0])}
+    for name, fn in parts.items():
+        dist.barrier(group=mesh.group)
+        out[name] = wall_ms(fn, SHARD_TIMED)
+    return out
+
+
+def session_rank(mesh, steps: int) -> dict:
+    """A rank of phase 22c: a ShardedSession on the deep10 shell world at
+    1920x1080 (rank 0 owns the world), ``steps`` steps; the step records,
+    the rank's launches and ``collective_costs`` on its last pool."""
+    from octree_tracer_tpu_torch import kernels, scenes
+    from octree_tracer_tpu_torch.parallel import ShardedSession
+    from octree_tracer_tpu_torch.render import camera, skip
+
+    world = scenes.shell_world(DEPTH) if mesh.rank == 0 else None
+    sess = ShardedSession(world, mesh, W, H)
+    sess.character.pos, sess.character.look = CAM_POS.copy(), CAM_LOOK.copy()
+    sess.settings.fov = FOV
+    mesh.traffic.clear()
+    kernels.reset_launches()
+    recs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        img, _, stats = sess.step()
+        host = img.cpu()
+        recs.append(step_record(sess, host, stats, (time.perf_counter() - t0) * 1e3))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    traffic = {k: dict(v) for k, v in mesh.traffic.items()}
+    ci = camera.camera_matrices(CAM_POS, CAM_LOOK, FOV, W, H)[1]
+    origin, dirs = camera.generate_rays_device(ci, W, H, mesh.device)
+    table = skip.build_warp_skip_table(sess.device_words, LEVELS)
+    costs = collective_costs(mesh, sess.device_words, table, origin, dirs,
+                             traffic.get("message_payload", {}).get("max_bytes", 0) // 4)
+    return {"steps": recs, "launches": launches, "traffic": traffic, "costs": costs}
+
+
+def frame_rank(mesh) -> dict:
+    """A rank of phase 22c's frame: phase 8's deep10 frame (pool and table
+    from rank 0 by ``replicate``) through ``render_frame_sharded``, plain
+    and counted; digests, launches and ``collective_costs``."""
+    from octree_tracer_tpu_torch import kernels, scenes, state
+    from octree_tracer_tpu_torch.parallel import mesh as pmesh
+    from octree_tracer_tpu_torch.render import camera, skip
+
+    words = pmesh.replicate(mesh, state.u32_to_device(scenes.deep_shell(DEPTH), mesh.device)
+                            if mesh.rank == 0 else None)
+    table = pmesh.replicate(mesh, skip.build_warp_skip_table(words, LEVELS)
+                            if mesh.rank == 0 else None)
+    ci = camera.camera_matrices(CAM_POS, CAM_LOOK, FOV, W, H)[1]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    origin, dirs = camera.generate_rays_device(ci, W, H, mesh.device)
+    args = dict(shadows=True, warp_table=table, u8_image=True)
+    img, res, _ = pmesh.render_frame_sharded(mesh, words, origin, dirs, **args)
+    visits = pmesh.render_frame_sharded(mesh, words, origin, dirs, with_visits=True, **args)[2]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    return {"digests": frame_digests(img, res, visits), "launches": launches,
+            "costs": collective_costs(mesh, words, table, origin, dirs)}
+
+
+def sharded_phases(dev, report, card, words, table, ci, ref) -> None:
+    """Phase 22: the sharded frame and ShardedSession. (a) An in-process
+    NCCL group of world size 1: phase 8's frame through
+    ``render_frame_sharded`` equal to ``render_frame`` on every pixel, result
+    field and visit, counts and flags; (b) a ShardedSession of 24 steps equal
+    to phase 11's Session at every step; (c) two gloo ranks sharing the
+    card: a ShardedSession of 24 steps (the table from step 18, as phase
+    11's), both ranks equal to phase 11's, and four ranks' frame equal to
+    ``render_frame``; (d) the
+    dryrun at two ranks. The collective costs by part beside each."""
+    import torch.distributed as dist
+
+    from octree_tracer_tpu_torch import kernels, scenes
+    from octree_tracer_tpu_torch.parallel import (
+        ShardedSession, dryrun_multichip, make_mesh, run_ranks)
+    from octree_tracer_tpu_torch.parallel import mesh as pmesh
+    from octree_tracer_tpu_torch.render import camera, skip, tracer
+
+    def record(path, rank, launches):
+        for k, v in launches.items():
+            report[k].setdefault("sharded_launches", {}).setdefault(path, {})[f"rank{rank}"] = v
+
+    def same_steps(recs, what):
+        for i, (a, b) in enumerate(zip(recs, ref)):
+            for key in ("img", "pool", "table", "stats", "node_stats", "sel_offset"):
+                check(a[key] == b[key], f"{what} step {i}: {key} differs from phase 11's "
+                      f"Session ({a[key]} vs {b[key]})")
+
+    def median(recs, last=None):
+        return float(np.median([r["ms"] for r in recs[-last if last else 0:]]))
+
+    def costs_text(c):
+        return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                         for k, v in c.items())
+
+    frame_args = dict(shadows=True, warp_table=table, u8_image=True)
+    origin, dirs = camera.generate_rays_device(ci, W, H, dev)
+    img_u, res_u, _ = tracer.render_frame(words, origin, dirs, **frame_args)
+    visits_u = {flags: tracer.render_frame(words, origin, dirs, with_visits=True,
+                                           visit_flags=flags, **frame_args)[2]
+                for flags in (False, True)}
+    want = frame_digests(img_u, res_u, visits_u[False])
+
+    tmp = tempfile.mkdtemp(prefix="ot_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=dev)
+        # 22a. The frame at world size 1.
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        o_s, d_s = camera.generate_rays_device(ci, W, H, dev)
+        img, res, _ = pmesh.render_frame_sharded(mesh, words, o_s, d_s, **frame_args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        record("frame_ws1", 0, launches)
+        check(all(launches.get(k, 0) > 0 for k in ("trace", "raygen", "shade_encode")),
+              f"the sharded frame launched {launches}")
+        check(torch.equal(img, img_u), f"the sharded frame differs from render_frame on "
+              f"{int((img != img_u).any(-1).sum())} pixels")
+        for f in res._fields:
+            check(torch.equal(getattr(res, f), getattr(res_u, f)), f"sharded {f} differs")
+        for flags in (False, True):
+            v = pmesh.render_frame_sharded(mesh, words, origin, dirs, with_visits=True,
+                                           visit_flags=flags, **frame_args)[2]
+            check(torch.equal(v, visits_u[flags]), f"sharded visits (flags {flags}) differ "
+                  f"on {int((v != visits_u[flags]).sum())} slots")
+        phase("22a sharded frame", f"{card}: NCCL, world size 1: deep{DEPTH} {W}x{H} shadows "
+              f"+ combined L{LEVELS} u8 equal to render_frame on every pixel and result "
+              f"field, visits equal in counts and flags; launches {launches}")
+
+        # 22b. The Session at world size 1, against phase 11's.
+        t0 = time.perf_counter()
+        sess = ShardedSession(scenes.shell_world(DEPTH), mesh, W, H)
+        sess.character.pos, sess.character.look = CAM_POS.copy(), CAM_LOOK.copy()
+        sess.settings.fov = FOV
+        setup_s = time.perf_counter() - t0
+        mesh.traffic.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        recs = []
+        for _ in range(SESSION_STEPS):
+            t0 = time.perf_counter()
+            img, _, stats = sess.step()
+            host = img.cpu()
+            recs.append(step_record(sess, host, stats, (time.perf_counter() - t0) * 1e3))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        record("session_ws1", 0, launches)
+        check(all(launches.get(k, 0) > 0 for k in SESSION_KERNELS),
+              f"a kernel never ran on the sharded Session path: {launches}")
+        same_steps(recs, "world size 1")
+        traffic = {k: dict(v) for k, v in mesh.traffic.items()}
+        payload = traffic.get("message_payload", {}).get("max_bytes", 0)
+        costs = collective_costs(mesh, sess.device_words,
+                                 skip.build_warp_skip_table(sess.device_words, LEVELS),
+                                 origin, dirs, payload // 4)
+        del sess
+        phase("22b sharded session", f"{card}: NCCL, world size 1: ShardedSession on the "
+              f"deep{DEPTH} shell world {W}x{H}, setup {setup_s:.1f} s, {SESSION_STEPS} steps "
+              f"equal to phase 11's Session at every step (u8 frames, pools, tables, stats, "
+              f"node_stats, selection offsets); median step {median(recs):.1f} ms (phase "
+              f"11: {median(ref):.1f}), last 8 {median(recs, 8):.1f} ms (phase 11: "
+              f"{median(ref, 8):.1f}); largest step payload {payload / 1e3:.1f} KB; "
+              f"traffic {traffic}; launches {launches}; step ms "
+              f"{[round(r['ms'], 1) for r in recs]}")
+        phase("22b costs", f"{card}: world size 1, the last step's pool, ms a call: "
+              f"{costs_text(costs)}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 22c. Two gloo ranks sharing the card: the Session; four: the frame.
+    t0 = time.perf_counter()
+    ranks = run_ranks(session_rank, 2, dev.type, SESSION_STEPS)
+    secs = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        same_steps(out["steps"], f"gloo rank {r} of 2")
+        record("session_ws2", r, out["launches"])
+    check(all(ranks[0]["launches"].get(k, 0) > 0 for k in SESSION_KERNELS),
+          f"rank 0 launched {ranks[0]['launches']}")
+    check(all(ranks[1]["launches"].get(k, 0) > 0 for k in FRAME_KERNELS)
+          and not any(ranks[1]["launches"].get(k) for k in ("select_candidates",
+                                                             "propagate_visits")),
+          f"rank 1 launched {ranks[1]['launches']}: it renders and replays, never selects")
+    for r, out in enumerate(ranks):
+        phase("22c two ranks", f"{card}: gloo, rank {r} of 2 on {dev} ({H // 2} rows): "
+              f"{SESSION_STEPS} ShardedSession steps equal to phase 11's (u8 frames, pools, "
+              f"tables, stats, node_stats, selection offsets); median step "
+              f"{median(out['steps']):.1f} ms (phase 11: {median(ref):.1f}), last 8 "
+              f"{median(out['steps'], 8):.1f} ms (phase 11: {median(ref, 8):.1f}); "
+              f"launches {out['launches']}; traffic "
+              f"{out['traffic']}; costs, ms a call: {costs_text(out['costs'])}; step ms "
+              f"{[round(x['ms'], 1) for x in out['steps']]}")
+    phase("22c two ranks", f"both ranks in {secs:.1f} s (process start, world, steps, costs)")
+    frames = run_ranks(frame_rank, 4, dev.type)
+    for r, out in enumerate(frames):
+        check(out["digests"] == want, f"rank {r} of 4: the frame differs from render_frame "
+              f"in {[k for k in want if out['digests'][k] != want[k]]}")
+        record("frame_ws4", r, out["launches"])
+        check(all(out["launches"].get(k, 0) > 0 for k in ("trace", "raygen", "shade_encode")),
+              f"rank {r} of 4 launched {out['launches']}")
+        phase("22c four ranks", f"{card}: gloo, rank {r} of 4 ({H // 4} rows): deep{DEPTH} "
+              f"frame (pool and table replicated from rank 0) equal to render_frame on "
+              f"every pixel, result field and counted visit; launches {out['launches']}; "
+              f"costs, ms a call: {costs_text(out['costs'])}")
+
+    # 22d. The dryrun, two ranks on the card.
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=dev.type)
+    phase("22d dryrun", f"{card}: dryrun_multichip(2) in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(dry)}")
 
 
 if __name__ == "__main__":

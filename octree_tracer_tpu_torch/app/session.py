@@ -43,6 +43,7 @@ from . import native_engine
 
 DEFAULT_POOL_CAPACITY = 10_000_000  # nodes
 MAX_PATCH_WORDS = 1_048_576  # larger diffs take a full upload
+WARP_LEVELS = 7  # the Session's table level
 _NO_STATS = {"subdivided": 0, "collapsed": 0, "patched": 0}
 
 
@@ -165,9 +166,12 @@ class Session:
         if idx.size > MAX_PATCH_WORDS or len(self.octree) > self.device_words.shape[0]:
             self._full_upload()  # too many patches, or the pool left its bucket
             return idx.size
-        self.device_words = feedback.apply_patches(self.device_words, idx, vals)
+        self._patch_pool(idx, vals)
         self._invalidate_warp(idx)
         return idx.size
+
+    def _patch_pool(self, idx: np.ndarray, vals: np.ndarray) -> None:
+        self.device_words = feedback.apply_patches(self.device_words, idx, vals)
 
     # -- warp table ----------------------------------------------------------
 
@@ -205,11 +209,25 @@ class Session:
         if tracer.warp_table_combined(self._warp_table):
             flat = flat * 2  # warp word of cell c at 2c; the skip half is
             # zeroed whole after collapses (_apply_feedback)
-        self._warp_table[torch.from_numpy(flat).to(self.device)] = 0
+        self._zero_table_cells(flat)
         self._warp_incremental += 1
         self._warp_invalid += int(flat.size)
         if self._warp_invalid > (side ** 3) // 16:
             self._warp_dirty = True  # too many root restarts: rebuild
+
+    def _zero_table_cells(self, flat: np.ndarray) -> None:
+        self._warp_table[torch.from_numpy(flat).to(self.device)] = 0
+
+    def _zero_skip_half(self) -> None:
+        self._warp_table[1::2] = 0
+
+    def _build_table(self, combined: bool) -> None:
+        build = skip.build_warp_skip_table if combined else tracer.build_warp_table
+        self._warp_table = build(self.device_words, WARP_LEVELS)
+
+    def _rebuild_skip_half(self) -> None:
+        levels = tracer.warp_table_levels(self._warp_table)
+        self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
 
     def _auto_warp(self, adaptive: bool):
         """The frame's warp table, or None: pools below
@@ -222,16 +240,12 @@ class Session:
                 or self.device_words.shape[0] < s.warp_pool_words):
             return None
         if self._warp_dirty or self._warp_table is None:
-            if s.skip_field and self.device_words.shape[0] <= (1 << 23):
-                self._warp_table = skip.build_warp_skip_table(self.device_words, 7)
-            else:
-                self._warp_table = tracer.build_warp_table(self.device_words, 7)
+            self._build_table(s.skip_field and self.device_words.shape[0] <= (1 << 23))
             self._warp_dirty = False
             self._skip_stale = False
             self._warp_invalid = 0
         elif self._skip_stale:
-            levels = tracer.warp_table_levels(self._warp_table)
-            self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
+            self._rebuild_skip_half()
             self._skip_stale = False
         return self._warp_table
 
@@ -252,25 +266,34 @@ class Session:
         self._last_visits = None
         self._full_upload()
 
-    def render(self):
-        """Render one frame; returns (image u8[H, W, 3], TraceResult in
-        pixel order), both on the session's device."""
+    def _plan_frame(self):
+        """(inverse camera matrix f32[4, 4], warp table or None, the
+        frame's ``render_frame`` settings) of the next frame, building or
+        refreshing the table; sets the counted-frame state ``update``
+        reads."""
         s = self.settings
         _, cam_inv = camera.camera_matrices(self.character.pos, self.character.look,
                                             s.fov, self.width, self.height)
         adaptive = not s.pause_adaptive and (
             s.feedback_every <= 1 or self.frame_count % s.feedback_every == 0)
-        origin, dirs = camera.generate_rays_device(cam_inv, self.width, self.height,
-                                                   self.device)
         warp = self._auto_warp(adaptive)
         self._frame_warped = adaptive and warp is not None
         # The pool the frame reads; patches replace device_words, not this.
         self._frame_words = self.device_words
+        args = dict(sun_dir=np.asarray(s.sun_dir, np.float32), shadows=s.shadows,
+                    show_steps=s.show_steps, show_hits=s.show_hits, with_visits=adaptive,
+                    misc_bool=s.misc_bool,
+                    visit_flags=adaptive and s.visit_flags and not s.show_hits)
+        return cam_inv, warp, args
+
+    def render(self):
+        """Render one frame; returns (image u8[H, W, 3], TraceResult in
+        pixel order), both on the session's device."""
+        cam_inv, warp, args = self._plan_frame()
+        origin, dirs = camera.generate_rays_device(cam_inv, self.width, self.height,
+                                                   self.device)
         img, result, visits = tracer.render_frame(
-            self._frame_words, origin, dirs, sun_dir=s.sun_dir, shadows=s.shadows,
-            show_steps=s.show_steps, show_hits=s.show_hits, with_visits=adaptive,
-            misc_bool=s.misc_bool, u8_image=True, warp_table=warp,
-            visit_flags=adaptive and s.visit_flags and not s.show_hits)
+            self._frame_words, origin, dirs, u8_image=True, warp_table=warp, **args)
         self._last_visits = visits
         return img, result
 
@@ -374,7 +397,7 @@ class Session:
             # A collapse fills cells that stored skip cubes may cover: zero
             # the skip half (the table stays valid as warp-only) and rebuild
             # it on the next frame that takes the table.
-            self._warp_table[1::2] = 0
+            self._zero_skip_half()
             self._skip_stale = True
         self._last_freed = self.octree.drain_freed()
         return {"subdivided": subdivided, "collapsed": collapsed, "patched": patched}

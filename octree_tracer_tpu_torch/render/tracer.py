@@ -542,17 +542,39 @@ def _lambert(normal: torch.Tensor, neg_sun: np.ndarray) -> torch.Tensor:
     return (normal[:, 0] * s[0] + normal[:, 1] * s[1]) + normal[:, 2] * s[2]
 
 
+_POW_CHUNK = 4096  # f32s: whole vectors of every CPU width, under one thread's grain
+
+
+def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
+    """``x ** e``, each element's bits independent of the batch it is in.
+    PyTorch's CPU pow runs a vector routine over whole pairs of vectors of
+    a contiguous run and the C library's for the rest, which rounds
+    otherwise; so on the CPU the values go in chunks of ``_POW_CHUNK``,
+    the last one padded, and every element takes the vector routine. A
+    frame sharded by rows then shades as the whole frame does. On a card
+    it is the device's ``powf`` on each element."""
+    if x.device.type != "cpu":
+        return x ** e
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = -n % _POW_CHUNK
+    if pad:
+        flat = torch.cat([flat, flat.new_ones(pad)])
+    out = torch.cat([c ** e for c in flat.split(_POW_CHUNK)])
+    return out[:n].reshape(x.shape)
+
+
 def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
                 sun_dir=DEFAULT_SUN, gamma=2.2, hits_visits=None) -> torch.Tensor:
     """Plain PyTorch version of K4's shading: f32[N, 3] colours."""
     if show_steps:
         g = div_scalar(result.steps.to(_F32), 64.0)
-        return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
+        return _pow(torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0), gamma)
     if hits_visits is not None:
         slot = result.index.clamp(0, hits_visits.shape[0] - 1).long()  # JAX's clamped gather
         counter = hits_visits[slot].clamp_max(15)
         g = torch.where(result.hit, div_scalar(counter.to(_F32), 15.0), 0.0)
-        return torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0) ** gamma
+        return _pow(torch.stack([g, g, g], dim=-1).clamp(0.0, 1.0), gamma)
     diffuse = torch.clamp_min(_lambert(result.normal, _neg_sun(sun_dir)), 0.0)
     if shadow_hit is not None:
         diffuse = torch.where(shadow_hit, 0.0, diffuse)
@@ -564,12 +586,12 @@ def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
     colour = torch.where(result.hit[:, None], lit, 0.2)
     red = torch.tensor([1.0, 0.0, 0.0], dtype=_F32, device=lit.device)
     colour = torch.where(result.forced[:, None], red, colour)
-    return colour.clamp(0.0, 1.0) ** gamma
+    return _pow(colour.clamp(0.0, 1.0), gamma)
 
 
 def encode_u8_plain(img: torch.Tensor) -> torch.Tensor:
     """Display encode: ``clip^(1/2.2) * 255`` truncated to u8."""
-    return (img.clamp(0.0, 1.0) ** (1.0 / 2.2) * 255.0).to(torch.uint8)
+    return (_pow(img.clamp(0.0, 1.0), 1.0 / 2.2) * 255.0).to(torch.uint8)
 
 
 _ONE_BITS = 0x3F800000  # 1.0f
@@ -600,7 +622,7 @@ def encode_table_plain(gamma=2.2, device="cpu") -> torch.Tensor:
         hi, lo = torch.where(ge, mid, hi), torch.where(ge, lo, mid + 1)
     t = lo.to(torch.int32).view(_F32).clone()
     t[0] = 0.0
-    shared = torch.tensor(_SHARED, dtype=_F32, device=device).clamp(0.0, 1.0) ** gamma
+    shared = _pow(torch.tensor(_SHARED, dtype=_F32, device=device).clamp(0.0, 1.0), gamma)
     starts = (torch.arange(ENCODE_TABLE_SIZE - _BUCKET0, device=device) + _BUCKET_BASE
               ) << _BUCKET_SHIFT
     buckets = encode_u8_plain(starts.to(torch.int32).view(_F32))

@@ -39,7 +39,8 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 43
     for mod in ("io", "io.vox", "io.rsvo", "io.rsvo_export", "io.vox_export",
                 "gen.structures", "utils", "utils.timing", "app.headless", "app.cli",
-                "app.viewer"):
+                "app.viewer", "parallel", "parallel.mesh", "parallel.session",
+                "parallel.launch", "parallel.dryrun"):
         assert f"octree_tracer_tpu_torch.{mod}" in names
 
 
