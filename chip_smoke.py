@@ -20,6 +20,15 @@ against the NumPy oracle on a subsample, and drives the main paths:
   with visit counting, candidate selection and the visit closure on the
   card (phases 9-11), and a CPU Session (plain versions) against a CUDA
   Session (kernels) in lockstep (phase 12);
+- K1's root-restart form (9b, ``parent_restart=False``, the reference's full
+  re-descent) on the deep10 1080p primaries without a table and with the
+  combined table: counts, flags and shadow counts equal to its plain
+  version, every field equal to the parent form's, both forms timed alone
+  in turn, and the counted frame in that form through ``render_frame``
+  (its launches in the kernels line as ``root_restart.frame_launches``);
+  phase 4 also runs the malformed pools in both forms, and phase 2 checks
+  that every K1 instantiation of both forms keeps 48 registers or fewer
+  and no spills;
 - ray generation (5): K3 bit for bit with its plain version, its kernel-alone
   time beside the wrapper's, and one call from a NumPy matrix under
   ``torch.cuda.set_sync_debug_mode("error")`` (the matrix goes by value);
@@ -197,10 +206,11 @@ def bound(nbytes: float, ops: float = 0.0) -> dict:
 def kernel_name(mangled: str) -> str:
     """A kernel's name from ptxas's mangled one (the last component of a
     nested name); K1's with its template arguments (strict descent, table
-    mode, visit mode, shadow mode)."""
-    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)E", mangled)
+    mode, visit mode, shadow mode, root restart)."""
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
     if m:
-        return "trace_kernel<strict={}, table={}, visits={}, shadow={}>".format(*m.groups())
+        return ("trace_kernel<strict={}, table={}, visits={}, shadow={}, root={}>"
+                .format(*m.groups()))
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -259,10 +269,12 @@ def nvidia_smi(query: str) -> str:
 def malformed_trace_check(dev, pools: dict) -> str:
     """K1 against its plain version on pools whose pointers run past their
     end, with no table and with the combined level-3 table, from the bench
-    camera and from inside the root cube: every primary output, counted
-    and flagged visits, and the shadow mode's hits and counts, exact; K4's
-    hit-counter view on the result within 1e-6. The "plane" camera sits
-    on a centre plane, where a cyclic pool's descents pass 126 levels."""
+    camera and from inside the root cube, in both restart forms: every
+    primary output, counted and flagged visits (the root form's flags held
+    to its plain counts' nonzero set), and the shadow mode's hits and
+    counts, exact; K4's hit-counter view on the result within 1e-6. The
+    "plane" camera sits on a centre plane, where a cyclic pool's descents
+    pass 126 levels."""
     from octree_tracer_tpu_torch.render import camera, skip, tracer
 
     res_px = 96
@@ -275,55 +287,69 @@ def malformed_trace_check(dev, pools: dict) -> str:
             # the powers of two turn subnormal and then 0, to the loop's cap.
             "plane": (np.array([0.0, 0.3, -0.45], np.float32),
                       np.array([0.3, -0.5, 1.0], np.float32))}
-    hits = past = capped = 0
+    hits = past = 0
+    capped = {True: 0, False: 0}
     for name, words in pools.items():
         n_words = words.shape[0]
+        tables = (None, skip.build_warp_skip_table(words, 3))
         for cam, (pos, look) in cams.items():
             ci = camera.camera_matrices(pos, look, 70.0, res_px, res_px)[1]
             origin, dirs = camera.generate_rays_device(ci, res_px, res_px, dev)
             origins = origin.reshape(1, 3).expand(res_px * res_px, 3)
             flat = dirs.reshape(-1, 3)
-            for table in (None, skip.build_warp_skip_table(words, 3)):
-                what = f"{name}, {cam} camera, {'no' if table is None else 'combined'} table"
-                marks = {}
-                for flags in (False, True):
-                    v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
-                    v_p = torch.zeros_like(v_k)
-                    r_k = tracer.trace(words, origins, dirs, warp_table=table, visits=v_k,
-                                       visit_flags=flags)
-                    r_p = tracer.trace_plain(words, origins, flat, warp_table=table,
-                                             visits=v_p, visit_flags=flags)
-                    check(all(torch.equal(a, b) for a, b in zip(r_k, r_p)),
-                          f"trace differs from trace_plain on {what}")
-                    check(torch.equal(v_k, v_p), f"trace visits (flags {flags}) differ from "
-                          f"trace_plain's on {what}")
-                    marks[flags] = v_k
-                counts = marks[False]
-                sh_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
-                sh_p = torch.zeros_like(sh_k)
-                hit_k = tracer.trace_shadow(words, r_k, cull=False, warp_table=table,
-                                            visits=sh_k, image_width=res_px)
-                hit_p = tracer.trace_plain(words, *tracer.shadow_rays(r_k, cull=False),
-                                           warp_table=table, visits=sh_p).hit
-                check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
-                      f"trace_shadow differs from shadow_rays + trace_plain on {what}")
-                # K4's hit-counter view reads each hit's count at its slot,
-                # clamped into the pool.
-                err = float((tracer.shade(r_k, None, hits_visits=counts)
-                             - tracer.shade_plain(r_k, None, hits_visits=counts)).abs().max())
-                check(err <= 1e-6, f"shade show_hits differs from plain by {err} on {what}")
-                hits += int(r_k.hit.sum())
-                past += int((r_k.index >= n_words).sum())
-                if name == "self_cycle" and cam == "plane":
-                    capped += int((~r_k.hit).sum())
+            for table in tables:
+                for restart in (True, False):
+                    what = (f"{name}, {cam} camera, {'no' if table is None else 'combined'} "
+                            f"table, {'parent' if restart else 'root'} restart")
+                    kw = dict(warp_table=table, parent_restart=restart)
+                    marks = {}
+                    for flags in (False, True):
+                        v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+                        r_k = tracer.trace(words, origins, dirs, visits=v_k, visit_flags=flags,
+                                           **kw)
+                        if restart or not flags:
+                            v_p = torch.zeros_like(v_k)
+                            r_p = tracer.trace_plain(words, origins, flat, visits=v_p,
+                                                     visit_flags=flags, **kw)
+                        else:
+                            # The root form's plain flags: its plain counts'
+                            # nonzero set (the same trips mark the same slots).
+                            v_p = (marks[False] > 0).int()
+                        check(all(torch.equal(a, b) for a, b in zip(r_k, r_p)),
+                              f"trace differs from trace_plain on {what}")
+                        check(torch.equal(v_k, v_p), f"trace visits (flags {flags}) differ "
+                              f"from trace_plain's on {what}")
+                        marks[flags] = v_k
+                    counts = marks[False]
+                    sh_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+                    sh_p = torch.zeros_like(sh_k)
+                    hit_k = tracer.trace_shadow(words, r_k, cull=False, visits=sh_k,
+                                                image_width=res_px, **kw)
+                    hit_p = tracer.trace_plain(words, *tracer.shadow_rays(r_k, cull=False),
+                                               visits=sh_p, **kw).hit
+                    check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
+                          f"trace_shadow differs from shadow_rays + trace_plain on {what}")
+                    # K4's hit-counter view reads each hit's count at its slot,
+                    # clamped into the pool.
+                    err = float((tracer.shade(r_k, None, hits_visits=counts)
+                                 - tracer.shade_plain(r_k, None, hits_visits=counts)
+                                 ).abs().max())
+                    check(err <= 1e-6, f"shade show_hits differs from plain by {err} on "
+                          f"{what}")
+                    if name == "self_cycle" and cam == "plane":
+                        capped[restart] += int((~r_k.hit).sum())
+                    if restart:
+                        hits += int(r_k.hit.sum())
+                        past += int((r_k.index >= n_words).sum())
     if "self_cycle" in pools:
-        check(capped > 0, "no self_cycle ray descended to the loop's cap")
+        check(capped[True] > 0 and capped[False] > 0,
+              f"no self_cycle ray descended to the loop's cap: {capped}")
     return (f"kernel equal to plain on {sorted(pools)} ({res_px}x{res_px} rays, bench, "
-            f"inside and centre-plane cameras, no table and combined L3; primary outputs, "
-            f"counts, flags, "
-            f"shadow hits and counts; K4's show_hits view within 1e-6): {hits} hits, {past} "
-            f"of them at slots past the pool's end; {capped} self_cycle rays descended past "
-            f"126 levels to the loop's cap")
+            f"inside and centre-plane cameras, no table and combined L3, parent and root "
+            f"restart; primary outputs, counts, flags, shadow hits and counts; K4's "
+            f"show_hits view within 1e-6): {hits} hits, {past} of them at slots past the "
+            f"pool's end; {capped[True]} / {capped[False]} self_cycle rays (parent / root "
+            f"restart) descended past 126 levels to the loop's cap")
 
 
 def main() -> int:
@@ -354,9 +380,18 @@ def run(dev: torch.device) -> int:
     path, log = kernels.build()
     kernels.library()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {path}")
+    k1_forms = {"0": 0, "1": 0}
     for fn, regs, spill_st, spill_ld in kernels.register_report(log):
-        phase("2 build", f"{kernel_name(fn)}: {regs} registers, spill stores "
+        name = kernel_name(fn)
+        phase("2 build", f"{name}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B")
+        if name.startswith("trace_kernel<"):
+            # K1's launch bounds (5 blocks of 256 an SM) hold each form to 48.
+            check(regs <= 48 and spill_st == spill_ld == 0,
+                  f"{name}: {regs} registers, spills {spill_st}/{spill_ld} B")
+            k1_forms[name[-2]] += 1
+    check(k1_forms["0"] == k1_forms["1"] == 30, f"K1 instantiations (parent, root): "
+          f"{k1_forms}, expected 30 each")
 
     # 3. The deep10 scene on the card.
     t0 = time.perf_counter()
@@ -737,6 +772,7 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> lis
           f"{t_counts:.4f} ms, flags {t_flags:.4f} ms, shadow counts {t_sh_counts:.4f} ms; "
           f"K4 show_hits f32 max |kernel - plain| {hits_err:.3g}, u8 equal on "
           f"{hits_frac:.6f}")
+    root_restart_phase(dev, report, words, origins, dirs, table, res_k, card)
 
     # 10. K5 and K6 against their plain versions on phase 9's visits. K5
     #     exactly equal at phase 10's two shapes (caps 65536, the Session's,
@@ -887,6 +923,133 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> lis
           f"totals {lock_totals}, nodes {len(pair[1].octree)}, counted frames "
           f"on the table {pair[1]._frame_warped}")
     return ref
+
+
+def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) -> None:
+    """Phase 9b: K1's root-restart form (``parent_restart=False``, the
+    reference's full re-descent) on the deep10 1080p primaries, without a
+    table and with the combined table: counts, flags (the plain counts'
+    nonzero set) and the shadow mode's counts equal to the plain version on
+    every field and slot, every field
+    equal to the parent form's (phase 6), the primary pass timed alone in
+    both forms in turn; then the counted frame in the root form, its launches
+    counted and its visits equal to the passes' counts."""
+    from octree_tracer_tpu_torch import kernels
+    from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
+    from octree_tracer_tpu_torch.probes.gather_probe import time_in_turn
+    from octree_tracer_tpu_torch.render import tracer
+
+    n_words, n = words.shape[0], W * H
+    flat = dirs.reshape(-1, 3)
+    # A descent passes a slot of a well-formed pool at most once, and a ray
+    # descends at most MAX_STEPS + 1 times a pass: the bound of any slot's
+    # count over a counted frame's two passes.
+    count_cap = 2 * n * (tracer.MAX_STEPS + 1)
+    check(count_cap < 2 ** 31, f"a slot's count can reach {count_cap}, past int32")
+    entry = {}
+    for what, t in (("none", None), ("combined", table)):
+        kw = dict(warp_table=t, parent_restart=False)
+        parent = res_k if t is not None else tracer.trace(words, origins, dirs)
+        plain_s = {}
+        v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_p = tracer.trace_plain(words, origins, flat, visits=v_p, **kw)
+        torch.cuda.synchronize()
+        plain_s["counts"] = time.perf_counter() - t0
+        # The plain version's flags are its counts' nonzero set (the same
+        # trips mark the same slots).
+        for mode, flags, want in (("counts", False, v_p), ("flags", True, (v_p > 0).int())):
+            v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+            r_k = tracer.trace(words, origins, dirs, visits=v_k, visit_flags=flags, **kw)
+            differ = [f for f, a, b in zip(r_k._fields, r_k, r_p) if not torch.equal(a, b)]
+            check(not differ, f"root restart, {what} table, {mode}: {differ} differ from plain")
+            check(torch.equal(v_k, want), f"root restart, {what} table, {mode}: visits differ "
+                  f"from plain on {int((v_k != want).sum())} slots")
+            differ = [f for f, a, b in zip(r_k._fields, r_k, parent) if not torch.equal(a, b)]
+            check(not differ, f"root restart, {what} table: {differ} differ from the parent "
+                  f"form")
+        counts = v_p
+        sh_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        sh_p = torch.zeros_like(sh_k)
+        hit_k = tracer.trace_shadow(words, r_k, cull=False, visits=sh_k, image_width=W, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit_p = tracer.trace_plain(words, *tracer.shadow_rays(r_k, cull=False), visits=sh_p,
+                                   **kw).hit
+        torch.cuda.synchronize()
+        plain_s["shadow"] = time.perf_counter() - t0
+        check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
+              f"root restart, {what} table: the shadow mode differs from plain")
+        culled = tracer.trace_shadow(words, r_k, image_width=W, **kw)
+        check(torch.equal(culled, tracer.trace_shadow(words, parent, warp_table=t,
+                                                      image_width=W)),
+              f"root restart, {what} table: the culled shadow mask differs from the parent "
+              f"form's")
+        max_count = int((counts + sh_k).max())
+        check(max_count <= count_cap, f"a slot counted {max_count} > {count_cap}")
+        rows = int(torch.unique(torch.nonzero(counts).flatten() >> 3).numel())
+        times = time_in_turn({
+            "root": lambda: tracer.trace(words, origins, dirs, **kw),
+            "parent": lambda: tracer.trace(words, origins, dirs, warp_table=t)}, 5, 10)
+        buf = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        entry[what] = dict(
+            max_abs_err=0.0, visits_exact=True,
+            alone_ms=times["root"]["median"], alone_range=times["root"]["range"],
+            parent_alone_ms=times["parent"]["median"],
+            parent_alone_range=times["parent"]["range"],
+            ms=cuda_ms(lambda: tracer.trace(words, origins, dirs, **kw), TIMED),
+            counts_ms=cuda_ms(lambda: tracer.trace(words, origins, dirs, visits=buf, **kw),
+                              TIMED),
+            flags_ms=cuda_ms(lambda: tracer.trace(words, origins, dirs, visits=buf,
+                                                  visit_flags=True, **kw), TIMED),
+            shadow_ms=device_ms(lambda: tracer.trace_shadow(words, r_k, image_width=W, **kw),
+                                10),
+            shadow_counts_ms=cuda_ms(lambda: tracer.trace_shadow(
+                words, r_k, cull=False, visits=buf, image_width=W, **kw), TIMED),
+            plain_ms=plain_s["counts"] * 1e3, shadow_plain_ms=plain_s["shadow"] * 1e3,
+            trips=int(counts.sum()), shadow_trips=int(sh_k.sum()), rows=rows,
+            max_slot_count=max_count, library_ms=None,
+            # As phase 6's primary: every pool row the root form's rays touch,
+            # the origin, each direction in and 42 bytes of results out.
+            **bound(rows * 32 + 12 + n * 54))
+        e = entry[what]
+        phase("9b K1 root restart", f"{card}: deep{DEPTH} {W}x{H}, {what} table: counts, "
+              f"flags and shadow counts equal to plain on every field and all {n_words} "
+              f"slots; every field and the culled shadow mask equal to the parent form's; "
+              f"{e['trips']} trips ({e['shadow_trips']} shadow) over {rows} rows, largest "
+              f"slot count {max_count} (cap {count_cap}); primary alone root "
+              f"{e['alone_ms']:.4f} ms {e['alone_range']}, parent {e['parent_alone_ms']:.4f} "
+              f"ms {e['parent_alone_range']} (in turn); root wrapper {e['ms']:.4f}, counts "
+              f"{e['counts_ms']:.4f}, flags {e['flags_ms']:.4f}, shadow alone "
+              f"{e['shadow_ms']:.4f}, shadow counts {e['shadow_counts_ms']:.4f} ms; bound "
+              f"{e['bound_ms']:.4f} ms; plain counts {e['plain_ms']:.0f} ms, shadow counts "
+              f"{e['shadow_plain_ms']:.0f} ms")
+        if t is not None:
+            frame_visits = counts + sh_k
+
+    # The slice's path: the counted frame in the root form, through
+    # render_frame, launches counted from zero.
+    kernels.reset_launches()
+    img_r, res_r, vis_r = tracer.render_frame(words, origins[0], dirs, warp_table=table,
+                                              u8_image=True, with_visits=True,
+                                              parent_restart=False)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in FRAME_KERNELS}
+    check(launches["trace"] == 2 and launches["shade_encode"] == 1,
+          f"the root-restart frame's launches: {launches}")
+    img_0, _, _ = tracer.render_frame(words, origins[0], dirs, warp_table=table, u8_image=True)
+    check(torch.equal(img_r, img_0), "the root-restart frame differs from the parent form's")
+    check(torch.equal(vis_r, frame_visits), "the root-restart frame's visits differ from its "
+          "passes' counts")
+    frame_ms = cuda_ms(lambda: tracer.render_frame(
+        words, origins[0], dirs, warp_table=table, u8_image=True, with_visits=True,
+        parent_restart=False), TIMED, WARMUP)
+    report["trace"]["root_restart"] = dict(entry, frame_launches=launches["trace"],
+                                           counted_frame_ms=frame_ms)
+    phase("9b K1 root restart", f"{card}: counted frame (combined L{LEVELS}, shadows, u8) "
+          f"in the root form {frame_ms:.3f} ms, image equal to the parent form's, visits "
+          f"equal to its two passes' counts; launches {launches}")
 
 
 def gen_phases(dev, report, card) -> None:

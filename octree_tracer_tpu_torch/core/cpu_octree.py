@@ -171,6 +171,10 @@ class CpuOctree:
             (np.uint32(VOXEL_OFFSET) + val) << np.uint32(4),
         ).astype(np.uint32)
 
+    def raw(self) -> np.ndarray:
+        """A copy of the pointer array alone."""
+        return self.pointers.copy()
+
     def _bin_rec(self) -> np.ndarray:
         rec = np.zeros(self._len, dtype=BIN_DTYPE)
         rec["pointer"] = self.pointers

@@ -20,6 +20,8 @@ import numpy as np
 VOXEL_OFFSET = 1 << 27
 CHUNK_OFFSET = np.uint32(1 << 31)
 COUNTER_BITS = 4
+COUNTER_MASK = np.uint32(0xF)
+COUNTER_MAX = 15
 
 _VOXEL_OFFSET_U32 = np.uint32(VOXEL_OFFSET)
 
@@ -27,6 +29,14 @@ _VOXEL_OFFSET_U32 = np.uint32(VOXEL_OFFSET)
 def pack_rgb(r, g, b):
     """RGB888 -> 24-bit colour."""
     return (np.uint32(r) << np.uint32(16)) | (np.uint32(g) << np.uint32(8)) | np.uint32(b)
+
+
+def unpack_rgb(value):
+    """24-bit colour -> (r, g, b) u32 triple."""
+    value = np.asarray(value, dtype=np.uint32)
+    return ((value >> np.uint32(16)) & np.uint32(0xFF),
+            (value >> np.uint32(8)) & np.uint32(0xFF),
+            value & np.uint32(0xFF))
 
 
 def leaf_word(rgb24):
@@ -42,6 +52,16 @@ def interior_word(child_index):
 def word_payload(word):
     """The word without its counter bits."""
     return np.asarray(word, dtype=np.uint32) >> np.uint32(COUNTER_BITS)
+
+
+def word_counter(word):
+    """The word's 4-bit hit counter."""
+    return np.asarray(word, dtype=np.uint32) & COUNTER_MASK
+
+
+def is_leaf_word(word):
+    """True where the word is a leaf (payload at or above VOXEL_OFFSET)."""
+    return word_payload(word) >= _VOXEL_OFFSET_U32
 
 
 def child_offset(child_index, depth):

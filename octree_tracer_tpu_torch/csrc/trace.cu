@@ -2,13 +2,19 @@
 //
 // Replaces the XLA while-loop program of octree_tracer_tpu/render/tracer.py:135
 // `trace` with `_init_state` (:239), `_make_body` (:372), `_warp_lookup`
-// (:2916), `_ray_box_dist` (:117), `_in_bounds` (:99) and `_finish` (:342), in
-// its parent_restart=True form without bricks, paging, pack9 or fuse_sibling.
+// (:2916), `_ray_box_dist` (:117), `_in_bounds` (:99) and `_finish` (:342),
+// without bricks, paging, pack9 or fuse_sibling, in both restart forms.
 // Each loop trip of a ray is one `_make_body` iteration for that ray: descend
 // one level through the group row, or take a t_max boundary step (2e-6 nudge)
 // and restart at the parent, at the warp-table cell or at the root; with a
 // combined table the step may cross a whole stored empty cube. A ray still
 // active after max_iters trips stays unresolved, as the JAX loop leaves it.
+// The root form (ROOT, JAX parent_restart=False, tracer.py:603-613) never
+// restarts at the parent: after every boundary step the ray descends again
+// from the warp cell's stored node, or from the root, as the reference's full
+// re-descent does (src/shader.wgsl:213-245), so its visit counts have the
+// reference counter's magnitudes. ROOT is a template parameter: the parent
+// form keeps its code and registers, and the root form carries no parent test.
 //
 // What bounds it on the H100: every trip is one dependent 4-byte load from
 // the pool (the child word of the 32-byte group row), and every boundary step
@@ -155,7 +161,8 @@ __device__ __forceinline__ int32_t ray_of(const TraceArgs& a, int32_t tile, int 
 
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
 // VISITS: 0 = none, 1 = counts, 2 = 0/1 flags. SHADOW: the shadow mode.
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+// ROOT: the root-restart form.
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
 __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
   constexpr bool kCombined = TABLE == 2;
   float o[3], d[3];
@@ -323,13 +330,16 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       }
 
       // Restart: at the parent when the stepped position stays in the
-      // leaf's parent cell, else at the warp cell's stored node, else at the
-      // root. With a combined table the skip side is refreshed at every step.
-      const float vs = 2.0f * inv1;
-      bool in_parent = true;
-      for (int k = 0; k < 3; ++k) {
-        in_parent = in_parent && (STRICT ? (nv[k] > cp[k] - vs && nv[k] <= cp[k] + vs)
-                                         : (nv[k] >= cp[k] - vs && nv[k] < cp[k] + vs));
+      // leaf's parent cell (never in the root form), else at the warp
+      // cell's stored node, else at the root. With a combined table the skip
+      // side is refreshed at every step.
+      bool in_parent = !ROOT;
+      if (!ROOT) {
+        const float vs = 2.0f * inv1;
+        for (int k = 0; k < 3; ++k) {
+          in_parent = in_parent && (STRICT ? (nv[k] > cp[k] - vs && nv[k] <= cp[k] + vs)
+                                           : (nv[k] >= cp[k] - vs && nv[k] < cp[k] + vs));
+        }
       }
       for (int k = 0; k < 3; ++k) {
         v[k] = nv[k];
@@ -367,41 +377,52 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
 // One warp a tile, in a grid of all tiles. Five resident blocks an SM (40
 // warps) hold the primary instantiations to 48 registers, where they
 // otherwise take 51 and fit four (PERF.md §6).
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
 __global__ void __launch_bounds__(ot::kBlock, 5) trace_kernel(const TraceArgs a) {
   const int lane = threadIdx.x & 31;
   const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
   if (tile >= a.n_tiles) return;
   const int32_t i = ray_of(a, tile, lane);
-  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW>(a, i);
+  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT>(a, i);
 }
 
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW>
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
 void launch_kernel(const TraceArgs& a, cudaStream_t s) {
-  trace_kernel<STRICT, TABLE, VISITS, SHADOW>
+  trace_kernel<STRICT, TABLE, VISITS, SHADOW, ROOT>
       <<<(a.n_tiles + kWarps - 1) / kWarps, ot::kBlock, 0, s>>>(a);
 }
 
-template <bool STRICT, int VISITS, bool SHADOW>
+template <bool STRICT, int VISITS, bool SHADOW, bool ROOT>
 void launch_table(const TraceArgs& a, int table_mode, cudaStream_t s) {
   switch (table_mode) {
-    case 0: launch_kernel<STRICT, 0, VISITS, SHADOW>(a, s); break;
-    case 1: launch_kernel<STRICT, 1, VISITS, SHADOW>(a, s); break;
-    default: launch_kernel<STRICT, 2, VISITS, SHADOW>(a, s); break;
+    case 0: launch_kernel<STRICT, 0, VISITS, SHADOW, ROOT>(a, s); break;
+    case 1: launch_kernel<STRICT, 1, VISITS, SHADOW, ROOT>(a, s); break;
+    default: launch_kernel<STRICT, 2, VISITS, SHADOW, ROOT>(a, s); break;
   }
 }
 
 // The shadow mode takes visit modes 0 and 1 only.
-template <bool SHADOW>
-void launch(const TraceArgs& a, int strict, int table_mode, int visit_mode,
-            cudaStream_t s) {
+template <bool SHADOW, bool ROOT>
+void launch_visits(const TraceArgs& a, int strict, int table_mode, int visit_mode,
+                   cudaStream_t s) {
   switch (visit_mode * 2 + (strict != 0)) {
-    case 0: launch_table<false, 0, SHADOW>(a, table_mode, s); break;
-    case 1: launch_table<true, 0, SHADOW>(a, table_mode, s); break;
-    case 2: launch_table<false, 1, SHADOW>(a, table_mode, s); break;
-    case 3: launch_table<true, 1, SHADOW>(a, table_mode, s); break;
-    case 4: launch_table<false, 2, false>(a, table_mode, s); break;
-    default: launch_table<true, 2, false>(a, table_mode, s); break;
+    case 0: launch_table<false, 0, SHADOW, ROOT>(a, table_mode, s); break;
+    case 1: launch_table<true, 0, SHADOW, ROOT>(a, table_mode, s); break;
+    case 2: launch_table<false, 1, SHADOW, ROOT>(a, table_mode, s); break;
+    case 3: launch_table<true, 1, SHADOW, ROOT>(a, table_mode, s); break;
+    case 4: launch_table<false, 2, false, ROOT>(a, table_mode, s); break;
+    default: launch_table<true, 2, false, ROOT>(a, table_mode, s); break;
+  }
+}
+
+// Every (strict, table, visits) combination has both restart forms.
+template <bool SHADOW>
+void launch(const TraceArgs& a, int strict, int root, int table_mode, int visit_mode,
+            cudaStream_t s) {
+  if (root != 0) {
+    launch_visits<SHADOW, true>(a, strict, table_mode, visit_mode, s);
+  } else {
+    launch_visits<SHADOW, false>(a, strict, table_mode, visit_mode, s);
   }
 }
 
@@ -426,15 +447,17 @@ int32_t clamp_words(int64_t n_words) {
 // Primary pass. origins f32[n, 3] (origin_stride 3) or one f32[3] point
 // (origin_stride 0); width > 0 traces the batch as an image of that many
 // columns in 8x4 tiles (n a multiple of width); table_mode: 0 = no table,
-// 1 = warp table, 2 = combined warp+skip table; visit_mode: 0 = no visits
-// (visits null), 1 = counts, 2 = 0/1 flags into visits int32[n_words];
-// n < 2^31 / 3. Returns cudaGetLastError() after the launch.
+// 1 = warp table, 2 = combined warp+skip table; root != 0 restarts at the
+// warp cell or the root after every boundary step (parent_restart=False);
+// visit_mode: 0 = no visits (visits null), 1 = counts, 2 = 0/1 flags into
+// visits int32[n_words]; n < 2^31 / 3. Returns cudaGetLastError() after the
+// launch.
 extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                         int origin_stride, const void* dirs, const void* active_init,
                         int64_t n, int width, const void* table, int table_mode,
-                        int levels, int strict, int max_steps, int max_iters, void* hit,
-                        void* forced, void* index, void* hit_pos, void* normal,
-                        void* steps, void* depth, void* word, void* visits,
+                        int levels, int strict, int root, int max_steps, int max_iters,
+                        void* hit, void* forced, void* index, void* hit_pos,
+                        void* normal, void* steps, void* depth, void* word, void* visits,
                         int visit_mode, void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
@@ -461,7 +484,7 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
   a.visits = static_cast<int32_t*>(visits);
   set_tiles(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch<false>(a, strict, table_mode, visit_mode, s);
+  launch<false>(a, strict, root, table_mode, visit_mode, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,8 +496,8 @@ extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* p
                                const void* prim_pos, const void* prim_normal, float sx,
                                float sy, float sz, int cull, int64_t n, int width,
                                const void* table, int table_mode, int levels, int strict,
-                               int max_steps, int max_iters, void* hit_out, void* visits,
-                               void* stream) {
+                               int root, int max_steps, int max_iters, void* hit_out,
+                               void* visits, void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
   a.words = static_cast<const uint32_t*>(words);
@@ -496,6 +519,6 @@ extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* p
   a.visits = static_cast<int32_t*>(visits);
   set_tiles(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch<true>(a, strict, table_mode, visits != nullptr ? 1 : 0, s);
+  launch<true>(a, strict, root, table_mode, visits != nullptr ? 1 : 0, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,10 +44,10 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U32 = ctypes.c_uint32
 # argtypes of each C entry point; the last argument is always the stream.
 _SIGNATURES = {
-    "ot_trace": [_P, _I64, _P, _I, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I]
+    "ot_trace": [_P, _I64, _P, _I, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I]
                 + [_P] * 9 + [_I, _P],
     "ot_trace_shadow": [_P, _I64, _P, _P, _P, _F, _F, _F, _I, _I64, _I, _P, _I, _I, _I,
-                        _I, _I] + [_P] * 3,
+                        _I, _I, _I] + [_P] * 3,
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
     "ot_raygen": [_F] * 16 + [_I, _I, _P, _P, _P],
     "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P, _P, _I64, _P, _P]

@@ -12,9 +12,11 @@ it. Importing this module builds nothing. Without a compiler,
 Bound here: the batch adaptive engine (``otc_process_subdivision`` and
 ``otc_process_unsubdivision``, driven by ``app.native_engine``), the mip
 tree (``patch_refs``, ``mip_tree``, used by ``world.World``), the dense
-chunk build (``build_dense``, used by ``gen.procedural``) and the batch
+chunk build (``build_dense``, used by ``gen.procedural``), the batch
 leaf insert into an existing chunk (``stamp_leaves``, used by
-``gen.structures``).
+``gen.structures``), and, for callers of the JAX package's API, the
+insertion-order build (``build_leaves``) and the ``.rsvo`` mask expansion
+(``load_rsvo_masks``).
 """
 
 from __future__ import annotations
@@ -114,6 +116,13 @@ def load():
         ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64, ctypes.c_uint32]
+    lib.otc_build_leaves.restype = ctypes.c_void_p
+    lib.otc_build_leaves.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64, ctypes.c_uint32]
+    lib.otc_load_rsvo.restype = ctypes.c_void_p
+    lib.otc_load_rsvo.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64,
+                                  ctypes.c_uint64]
     lib.otc_buf_len.restype = ctypes.c_uint64
     lib.otc_buf_len.argtypes = [ctypes.c_void_p]
     lib.otc_buf_copy.restype = None
@@ -221,3 +230,32 @@ def build_dense(packed: np.ndarray, depth: int) -> tuple[np.ndarray, np.ndarray]
         raise ValueError(f"packed grid has {packed.shape[0]} words, "
                          f"expected {expect} for depth {depth}")
     return _take_buf(lib, lib.otc_build_dense(_u32p(packed), ctypes.c_uint32(depth)))
+
+
+def build_leaves(pos: np.ndarray, leaf_ptrs: np.ndarray, leaf_vals: np.ndarray,
+                 depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """A new tree of the leaves (``leaf_ptrs[i]``, ``leaf_vals[i]``) at the
+    positions ``pos`` f32[M, 3] and ``depth``, inserted in order: the
+    (pointers, values) of a ``CpuOctree(0)`` after a ``put_in_voxel`` /
+    ``put_in_block`` loop in the same order."""
+    lib = load()
+    pos = np.ascontiguousarray(pos, dtype=np.float32).reshape(-1, 3)
+    leaf_ptrs = np.ascontiguousarray(leaf_ptrs, dtype=np.uint32)
+    leaf_vals = np.ascontiguousarray(leaf_vals, dtype=np.uint32)
+    if not pos.shape[0] == leaf_ptrs.shape[0] == leaf_vals.shape[0]:
+        raise ValueError("pos, leaf_ptrs and leaf_vals must have one entry per leaf")
+    return _take_buf(lib, lib.otc_build_leaves(_f32p(pos), _u32p(leaf_ptrs),
+                                               _u32p(leaf_vals), pos.shape[0], depth))
+
+
+def load_rsvo_masks(masks: np.ndarray, node_end: int) -> tuple[np.ndarray, np.ndarray]:
+    """The breadth-first expansion of an ``.rsvo`` child-mask stream (one
+    byte a node, the root's first): each block reference in breadth-first
+    order takes the next mask byte and becomes a child group while the
+    byte's place in the stream is below ``node_end`` (the node count of the
+    levels above the depth loaded, as ``io.rsvo.load_rsvo`` counts it).
+    Returns (pointers, values), the arrays ``io.rsvo.load_rsvo`` builds."""
+    lib = load()
+    masks = np.ascontiguousarray(masks, dtype=np.uint8).reshape(-1)
+    return _take_buf(lib, lib.otc_load_rsvo(
+        masks.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), masks.shape[0], node_end))

@@ -34,6 +34,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -138,8 +139,10 @@ def _sass(lib: str, ptxas: list[str], out_path: str) -> bool:
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    # The strict, combined-table, unmarked primary kernel, parent-restart
+    # form (a tree from before the root form names it without the last flag).
     names = [r[0] for r in kernels.register_report("\n".join(ptxas))
-             if "trace_kernelILb1ELi2ELi0ELb0E" in r[0]]
+             if re.search(r"trace_kernelILb1ELi2ELi0ELb0E(Lb0E)?E", r[0])]
     if not os.path.exists(tool) or not names:
         return False
     out = subprocess.run([tool, "-sass", "-fun", names[0], lib], capture_output=True,

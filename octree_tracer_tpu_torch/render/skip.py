@@ -9,6 +9,10 @@ skip word (at 2c+1), so the traversal fetches both in one 32-byte row.
 
 The occupancy comes from kernel K2 (``tracer.warp_occupancy``); the cube
 compositions stay host NumPy, as in the JAX package (``skip.py:141-147``).
+``decode_skip`` is the codebook that the traversal's plain version reads
+(``tracer._decode_skip``) and kernel K1 mirrors (``csrc/trace.cu``
+``decode_skip``). This module takes ``tracer`` at call time, because
+``tracer`` imports the codebook from here.
 """
 
 from __future__ import annotations
@@ -16,12 +20,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .tracer import warp_occupancy
+SKIP_CAP = 32  # largest encodable cube side (codebook 0..12, 16, 24, 32)
+
+
+def decode_skip(v: torch.Tensor) -> torch.Tensor:
+    """Codebook nibble -> cube side in cells: 0..12 as they are, 13/14/15
+    -> 16/24/32."""
+    return torch.where(v <= 12, v, (v - 11) * 8)
+
+
+def encode_skip(b: torch.Tensor) -> torch.Tensor:
+    """Cube side -> codebook nibble, floored (conservative): the largest
+    codebook value not above ``b``, as int32."""
+    b = torch.clamp(b, max=SKIP_CAP)
+    nib = torch.where(b <= 12, b, torch.where(b < 16, 12, torch.where(
+        b < 24, 13, torch.where(b < 32, 14, 15))))
+    return nib.to(torch.int32)
 
 
 def occupancy_from_pool(words: torch.Tensor, levels: int) -> torch.Tensor:
     """bool[8^levels] (flat, x-major like the warp table): the cell holds
     filled geometry (its covering node is not an empty leaf)."""
+    from .tracer import warp_occupancy
+
     return warp_occupancy(words, levels)[1]
 
 
@@ -75,6 +96,8 @@ def build_warp_skip_table(words: torch.Tensor, levels: int = 7) -> torch.Tensor:
     """Combined table int32[2 * 8^levels]: cell c's warp word at 2c and its
     skip word at 2c+1. One K2 launch gives both the warp words and the
     occupancy the skip field is built from."""
+    from .tracer import warp_occupancy
+
     warp, occ = warp_occupancy(words, levels)
     skip = build_skip_field(words, levels, occ=occ)
     return torch.stack([warp, skip], dim=1).reshape(-1)

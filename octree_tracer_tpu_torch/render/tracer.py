@@ -5,16 +5,16 @@ has a wrapper and, beside it, a plain PyTorch version of the same function
 written as separate ops, term by term after the JAX expressions:
 
 - ``trace`` (K1, ``csrc/trace.cu``) / ``trace_plain``: the semantics of JAX
-  ``trace`` with ``parent_restart=True`` (``tracer.py:135``), and
-  ``trace_shadow`` (K1's shadow mode) / ``shadow_rays`` + ``trace_plain``:
-  the frame's shadow pass;
+  ``trace`` (``tracer.py:135``) in both restart forms (``parent_restart``),
+  and ``trace_shadow`` (K1's shadow mode) / ``shadow_rays`` +
+  ``trace_plain``: the frame's shadow pass;
 - ``warp_occupancy`` (K2, ``csrc/warp_occupancy.cu``) /
   ``warp_occupancy_plain``: ``build_warp_table`` (``tracer.py:2859``) and
   ``skip.occupancy_from_pool`` (``skip.py:66``) from one descent, and
   ``k2_bytes``, the bytes it must move;
 - ``shade`` (K4, ``csrc/shade_encode.cu``) / ``shade_plain`` and
   ``encode_u8_plain``: ``shade`` (``tracer.py:3132``) and ``encode_u8``
-  (``:3191``).
+  (``:3191``); ``encode_u8`` encodes an image apart from the shading.
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches its kernel or raises.
@@ -45,6 +45,7 @@ import torch
 from .. import kernels
 from ..core.voxel import VOXEL_OFFSET
 from ..state import div_scalar, narrow_u32, widen_u32
+from .skip import decode_skip
 
 MAX_STEPS = 100
 _EPS_DIR = 1e-6
@@ -107,8 +108,8 @@ def _ray_box_dist(pos: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_skip(skip_word: torch.Tensor, oct_: torch.Tensor) -> torch.Tensor:
-    nib = (skip_word >> (4 * oct_)) & 15
-    return torch.where(nib <= 12, nib, (nib - 11) * 8)
+    """The cube side stored in ``skip_word`` for octant ``oct_``."""
+    return decode_skip((skip_word >> (4 * oct_)) & 15)
 
 
 def _warp_lookup(table: torch.Tensor, levels: int, p: torch.Tensor,
@@ -164,15 +165,29 @@ def _check_pool(words: torch.Tensor) -> None:
         raise ValueError("the pool is empty: it must hold at least the root group")
 
 
+def _max_iters(max_steps: int, max_iters: int | None) -> int:
+    """The loop's trip cap: ``max_iters``, or JAX's ``(max_steps + 2) * 26``
+    when None (tracer.py:201-202)."""
+    if max_iters is None:
+        return (max_steps + 2) * 26
+    if not 0 <= max_iters < 1 << 31:
+        raise ValueError(f"max_iters must be in [0, 2^31), got {max_iters}")
+    return int(max_iters)
+
+
 def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
                 strict_descent=True, warp_table=None, visits=None,
-                visit_flags=False) -> TraceResult:
-    """Plain PyTorch version of kernel K1: JAX ``trace`` with
-    ``parent_restart=True``, iterated over the rays still active.
+                visit_flags=False, parent_restart=True,
+                max_iters=None) -> TraceResult:
+    """Plain PyTorch version of kernel K1: JAX ``trace``, iterated over the
+    rays still active.
 
     Each loop trip is one JAX ``_make_body`` iteration for every live ray;
     finished rays leave the working set, which changes no ray's result. A
-    ray still active after ``(max_steps + 2) * 26`` trips stays unresolved.
+    ray still active after ``max_iters`` trips (by default ``(max_steps +
+    2) * 26``) stays unresolved. ``parent_restart=False`` restarts every
+    boundary step at the warp cell or the root, never at the parent: the
+    reference's full re-descent, whose visit counts are the oracle's.
     ``visits`` (int32[pool], updated in place) gets one mark at the slot
     each trip reads, as JAX ``_visit_mark`` (tracer.py:355): a count, or a
     1 under ``visit_flags``."""
@@ -224,7 +239,7 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         if combined:
             skw = _decode_skip(skip, oct_)
 
-    for _ in range((max_steps + 2) * 26):
+    for _ in range(_max_iters(max_steps, max_iters)):
         if ids.shape[0] == 0:
             break
         depth1 = depth + 1
@@ -291,15 +306,18 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         out_depth[r] = max_steps
 
         # Restart: parent when the stepped position stays in the leaf's
-        # parent cell, else the warp cell's node, else the root.
-        vs = 2.0 * inv1
-        if strict_descent:
-            in_parent = torch.all((nv > cp - vs) & (nv <= cp + vs), dim=1)
-        else:
-            in_parent = torch.all((nv >= cp - vs) & (nv < cp + vs), dim=1)
+        # parent cell (under parent_restart), else the warp cell's node,
+        # else the root.
+        go_root = go
+        if parent_restart:
+            vs = 2.0 * inv1
+            if strict_descent:
+                in_parent = torch.all((nv > cp - vs) & (nv <= cp + vs), dim=1)
+            else:
+                in_parent = torch.all((nv >= cp - vs) & (nv < cp + vs), dim=1)
+            go_root = go & ~in_parent
         # interior, go & in_parent (all unchanged), go_warp and go_root are
         # disjoint, so their updates apply one after another.
-        go_root = go & ~in_parent
         if table is not None:
             w_i, w_p, w_d, w_valid, w_skip = _warp_lookup(
                 table, levels, nv, strict_descent, combined
@@ -350,7 +368,7 @@ def _trace_checks(words, n, dev, warp_table, visits, visit_flags):
 
 def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
           strict_descent=True, warp_table=None, visits=None,
-          visit_flags=False) -> TraceResult:
+          visit_flags=False, parent_restart=True, max_iters=None) -> TraceResult:
     """Trace the rays ``dirs`` through the node pool ``words``.
 
     ``dirs`` is f32[N, 3], or an image f32[H, W, 3] of N = H*W rays, which
@@ -361,8 +379,13 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     optional warp table (8^L words) or combined warp+skip table (2*8^L
     words) of ``words``. ``visits``, an optional int32 tensor of the pool's
     length, is marked in place at every slot a ray reads: counted, or set to
-    1 under ``visit_flags``. On a CUDA device this launches kernel K1; on
-    the CPU it is ``trace_plain``.
+    1 under ``visit_flags``. ``parent_restart=False`` takes the reference's
+    full re-descent after every boundary step (from the warp cell where the
+    table has one, else from the root), the only form whose visit counts
+    have the reference counter's magnitudes; hits are the same in both
+    forms. A ray still active after ``max_iters`` loop trips (by default
+    ``(max_steps + 2) * 26``) stays unresolved. On a CUDA device this
+    launches kernel K1; on the CPU it is ``trace_plain``.
     """
     dev = dirs.device
     image = dirs.dim() == 3
@@ -375,9 +398,11 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.check(active_init, "active_init", torch.bool, (n,), dev)
     table_mode, levels, visit_mode = _trace_checks(words, n, dev, warp_table, visits,
                                                    visit_flags)
+    iters = _max_iters(max_steps, max_iters)
     if not kernels.uses_kernel(dev):
         return trace_plain(words, origins, dirs, active_init, max_steps,
-                           strict_descent, warp_table, visits, visit_flags)
+                           strict_descent, warp_table, visits, visit_flags,
+                           parent_restart, iters)
 
     res = TraceResult(
         hit=torch.empty(n, dtype=torch.bool, device=dev),
@@ -394,26 +419,27 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.ptr(words), words.numel(), kernels.ptr(origins),
         0 if origins.stride(0) == 0 else 3, kernels.ptr(dirs),
         kernels.ptr(active_init), n, width,
-        kernels.ptr(warp_table), table_mode, levels, int(strict_descent), max_steps,
-        (max_steps + 2) * 26, *[kernels.ptr(f) for f in res], kernels.ptr(visits),
-        visit_mode,
+        kernels.ptr(warp_table), table_mode, levels, int(strict_descent),
+        int(not parent_restart), max_steps, iters, *[kernels.ptr(f) for f in res],
+        kernels.ptr(visits), visit_mode,
     )
     return res
 
 
 def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
                  warp_table=None, visits=None, max_steps=MAX_STEPS,
-                 strict_descent=True, *, image_width: int) -> torch.Tensor:
+                 strict_descent=True, parent_restart=True, *,
+                 image_width: int) -> torch.Tensor:
     """bool[N]: whether each shadow ray of ``result`` (``shadow_rays``'s,
     from ``hit_pos + normal * 2.5e-6`` toward ``-normalize(sun_dir)``, active
     on hits, and under ``cull`` only on hits facing the sun) hits geometry.
     ``visits`` (int32[pool]) gets the shadow rays' exact counts added.
     ``image_width`` is the width of the image whose pixels ``result`` holds
     in order, which the kernel takes in 8x4 tiles as ``trace`` takes an
-    image's dirs, or 0 for a batch in linear order. On a CUDA device this
-    launches kernel K1 in its shadow mode, which builds each ray from the
-    result in its prologue and writes only ``hit``; on the CPU it is
-    ``shadow_rays`` and ``trace_plain``."""
+    image's dirs, or 0 for a batch in linear order. ``parent_restart`` is
+    ``trace``'s. On a CUDA device this launches kernel K1 in its shadow
+    mode, which builds each ray from the result in its prologue and writes
+    only ``hit``; on the CPU it is ``shadow_rays`` and ``trace_plain``."""
     dev = words.device
     n = result.hit.shape[0]
     kernels.check(result.hit, "hit", torch.bool, (n,), dev)
@@ -429,15 +455,15 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
     if not kernels.uses_kernel(dev):
         o, d, active = shadow_rays(result, sun_dir, cull)
         return trace_plain(words, o, d, active, max_steps, strict_descent, warp_table,
-                           visits).hit
+                           visits, parent_restart=parent_restart).hit
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     kernels.launch(
         "trace", "ot_trace_shadow", dev,
         kernels.ptr(words), words.numel(), kernels.ptr(result.hit),
         kernels.ptr(result.hit_pos), kernels.ptr(result.normal),
         *(float(c) for c in neg_sun), int(cull), n, image_width, kernels.ptr(warp_table),
-        table_mode, levels, int(strict_descent), max_steps, (max_steps + 2) * 26,
-        kernels.ptr(hit), kernels.ptr(visits),
+        table_mode, levels, int(strict_descent), int(not parent_restart), max_steps,
+        _max_iters(max_steps, None), kernels.ptr(hit), kernels.ptr(visits),
     )
     return hit
 
@@ -592,6 +618,17 @@ def shade_plain(result: TraceResult, shadow_hit=None, show_steps=False,
 def encode_u8_plain(img: torch.Tensor) -> torch.Tensor:
     """Display encode: ``clip^(1/2.2) * 255`` truncated to u8."""
     return (_pow(img.clamp(0.0, 1.0), 1.0 / 2.2) * 255.0).to(torch.uint8)
+
+
+def encode_u8(img: torch.Tensor) -> torch.Tensor:
+    """The display encode of an f32 image (any shape) to u8, on its device:
+    ``clip^(1/2.2) * 255`` truncated. JAX's ``encode_u8`` is an elementwise
+    XLA pass, and so is this on every device: PyTorch ops
+    (``encode_u8_plain``), on the card its ``powf``. A frame shaded by K4
+    with ``u8=True`` gets the same rule from the kernel's threshold search
+    (``encode_check`` holds it to the ``powf`` encode)."""
+    kernels.check(img, "img", _F32)
+    return encode_u8_plain(img)
 
 
 _ONE_BITS = 0x3F800000  # 1.0f
@@ -788,7 +825,7 @@ def overlay_hit_counts(visits: torch.Tensor, result: TraceResult) -> torch.Tenso
 def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
                  show_steps=False, misc_bool=False, max_steps=MAX_STEPS,
                  warp_table=None, u8_image=False, with_visits=False,
-                 show_hits=False, visit_flags=False):
+                 show_hits=False, visit_flags=False, parent_restart=True):
     """Full frame: primary trace, shadow trace, shade (and u8 encode).
 
     ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
@@ -807,6 +844,8 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     adaptive thresholds read only the filled-leaf counts and the interior
     zero-set, which both modes give exactly. ``show_hits`` forces exact
     counts and no shadows, and shows ``min(visits, 15) / 15`` on hits.
+    ``parent_restart`` goes to both passes (``trace``'s): False gives the
+    reference's full re-descent and its visit magnitudes.
     """
     if show_hits:
         shadows, with_visits, visit_flags = False, True, False
@@ -820,7 +859,7 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
     result = trace(words, origins, dirs.contiguous(), max_steps=max_steps,
                    strict_descent=strict, warp_table=warp_table, visits=visits,
-                   visit_flags=visit_flags)
+                   visit_flags=visit_flags, parent_restart=parent_restart)
     if with_visits and visit_flags:
         visits = overlay_hit_counts(visits, result)
     shadow_hit = None
@@ -828,7 +867,7 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
         shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits,
                                   warp_table=warp_table, visits=visits,
                                   max_steps=max_steps, strict_descent=strict,
-                                  image_width=w)
+                                  parent_restart=parent_restart, image_width=w)
     img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
                 sun_dir=sun_dir, gamma=gamma, u8=u8_image,
                 hits_visits=visits if show_hits else None)
