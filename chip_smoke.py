@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's nine CUDA kernels from ``octree_tracer_tpu_torch/csrc``
+Builds the port's ten CUDA kernels from ``octree_tracer_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), checks each against its
 plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
@@ -28,7 +28,19 @@ against the NumPy oracle on a subsample, and drives the main paths:
   (its launches in the kernels line as ``root_restart.frame_launches``);
   phase 4 also runs the malformed pools in both forms, and phase 2 checks
   that every K1 instantiation of both forms keeps 48 registers or fewer
-  and no spills;
+  (the brick forms 64) and that no kernel spills;
+- brick maps and paged pools (9c) on deep10 at 1080p: K10
+  (``bricks.build_bricks``) equal to its plain version and to
+  ``build_bricks_np`` on deep10's pool and the malformed pools, timed;
+  K1's brick mode (no table) equal to its plain version on every field,
+  the shadow mask and every visit slot in both restart forms, and to the
+  no-table form without bricks on every field, also on random trees, a
+  dense slab at max_steps 6 and the malformed pools; the primary pass,
+  the shadow mode and the shadowed u8 frame with bricks timed in turn
+  against the no-table form and the combined table; the slice's path
+  (``build_bricks``, raygen, ``render_frame(bricks=...)``) counted; and
+  ``build_pages`` of deep10 with the paged frame equal to the unpaged
+  one after the remap, K1 over the relayout timed against the original;
 - ray generation (5): K3 bit for bit with its plain version, its kernel-alone
   time beside the wrapper's, and one call from a NumPy matrix under
   ``torch.cuda.set_sync_debug_mode("error")`` (the matrix goes by value);
@@ -167,6 +179,8 @@ KERNELS = {
                     "probes/gather_probe.py:264"),
     "add_scalar": ("octree_tracer_tpu_torch/csrc/add_scalar.cu",
                    "probes/pallas_min_probe.py:44"),
+    "brick_rows": ("octree_tracer_tpu_torch/csrc/brick_rows.cu",
+                   "octree_tracer_tpu/render/bricks.py:110"),
 }
 
 
@@ -203,13 +217,20 @@ def bound(nbytes: float, ops: float = 0.0) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def max_abs_err(pairs) -> float:
+    """The largest |a - b| over the pairs of tensors compared (an integer
+    tensor's bits as their int32 values)."""
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+               for a, b in pairs)
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's name from ptxas's mangled one (the last component of a
     nested name); K1's with its template arguments (strict descent, table
-    mode, visit mode, shadow mode, root restart)."""
-    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    mode, visit mode, shadow mode, root restart, brick mode)."""
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
     if m:
-        return ("trace_kernel<strict={}, table={}, visits={}, shadow={}, root={}>"
+        return ("trace_kernel<strict={}, table={}, visits={}, shadow={}, root={}, bricks={}>"
                 .format(*m.groups()))
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while m := re.match(r"\d+", mangled[pos:]):
@@ -380,18 +401,19 @@ def run(dev: torch.device) -> int:
     path, log = kernels.build()
     kernels.library()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {path}")
-    k1_forms = {"0": 0, "1": 0}
+    k1_forms = {}
     for fn, regs, spill_st, spill_ld in kernels.register_report(log):
         name = kernel_name(fn)
         phase("2 build", f"{name}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B")
-        if name.startswith("trace_kernel<"):
-            # K1's launch bounds (5 blocks of 256 an SM) hold each form to 48.
-            check(regs <= 48 and spill_st == spill_ld == 0,
-                  f"{name}: {regs} registers, spills {spill_st}/{spill_ld} B")
-            k1_forms[name[-2]] += 1
-    check(k1_forms["0"] == k1_forms["1"] == 30, f"K1 instantiations (parent, root): "
-          f"{k1_forms}, expected 30 each")
+        check(spill_st == spill_ld == 0, f"{name}: spills {spill_st}/{spill_ld} B")
+        if m := re.search(r"root=(\d), bricks=(\d)>", name):
+            # K1's launch bounds (5 blocks of 256 an SM) hold each form but
+            # the brick forms (4 blocks, 64) to 48.
+            check(m[2] == "1" or regs <= 48, f"{name}: {regs} registers")
+            k1_forms[m.groups()] = k1_forms.get(m.groups(), 0) + 1
+    want = {("0", "0"): 30, ("1", "0"): 30, ("0", "1"): 10, ("1", "1"): 10}
+    check(k1_forms == want, f"K1 instantiations (root, bricks): {k1_forms}, expected {want}")
 
     # 3. The deep10 scene on the card.
     t0 = time.perf_counter()
@@ -693,7 +715,7 @@ def run(dev: torch.device) -> int:
           f"frame by kernel: {profile}; device busy {busy:.3f} of the window from "
           f"the first kernel's start to the last one's end")
 
-    ref = session_phases(dev, report, words, origins, dirs, table, res_k, card)
+    ref = session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci, card)
     gen_phases(dev, report, card)
     probe_phase(dev, report)
     app_phases(dev, report, card)
@@ -706,7 +728,8 @@ def run(dev: torch.device) -> int:
     return 0
 
 
-def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> list:
+def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci,
+                   card) -> list:
     """Phases 9-12: visit marking, candidate selection and the visit closure
     against their plain versions, then the Session on the card. Returns
     phase 11's step records (``step_record``), which phase 22 holds the
@@ -773,6 +796,7 @@ def session_phases(dev, report, words, origins, dirs, table, res_k, card) -> lis
           f"K4 show_hits f32 max |kernel - plain| {hits_err:.3g}, u8 equal on "
           f"{hits_frac:.6f}")
     root_restart_phase(dev, report, words, origins, dirs, table, res_k, card)
+    bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k, ci, card)
 
     # 10. K5 and K6 against their plain versions on phase 9's visits. K5
     #     exactly equal at phase 10's two shapes (caps 65536, the Session's,
@@ -950,7 +974,7 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     for what, t in (("none", None), ("combined", table)):
         kw = dict(warp_table=t, parent_restart=False)
         parent = res_k if t is not None else tracer.trace(words, origins, dirs)
-        plain_s = {}
+        plain_s, errs, exact = {}, [], []
         v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -966,6 +990,8 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
             check(not differ, f"root restart, {what} table, {mode}: {differ} differ from plain")
             check(torch.equal(v_k, want), f"root restart, {what} table, {mode}: visits differ "
                   f"from plain on {int((v_k != want).sum())} slots")
+            errs.append(max_abs_err(zip(r_k, r_p)))
+            exact.append(torch.equal(v_k, want))
             differ = [f for f, a, b in zip(r_k._fields, r_k, parent) if not torch.equal(a, b)]
             check(not differ, f"root restart, {what} table: {differ} differ from the parent "
                   f"form")
@@ -981,6 +1007,8 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
         plain_s["shadow"] = time.perf_counter() - t0
         check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
               f"root restart, {what} table: the shadow mode differs from plain")
+        errs.append(max_abs_err([(hit_k, hit_p)]))
+        exact.append(torch.equal(sh_k, sh_p))
         culled = tracer.trace_shadow(words, r_k, image_width=W, **kw)
         check(torch.equal(culled, tracer.trace_shadow(words, parent, warp_table=t,
                                                       image_width=W)),
@@ -994,7 +1022,7 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
             "parent": lambda: tracer.trace(words, origins, dirs, warp_table=t)}, 5, 10)
         buf = torch.zeros(n_words, dtype=torch.int32, device=dev)
         entry[what] = dict(
-            max_abs_err=0.0, visits_exact=True,
+            max_abs_err=max(errs), visits_exact=all(exact),
             alone_ms=times["root"]["median"], alone_range=times["root"]["range"],
             parent_alone_ms=times["parent"]["median"],
             parent_alone_range=times["parent"]["range"],
@@ -1050,6 +1078,333 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     phase("9b K1 root restart", f"{card}: counted frame (combined L{LEVELS}, shadows, u8) "
           f"in the root form {frame_ms:.3f} ms, image equal to the parent form's, visits "
           f"equal to its two passes' counts; launches {launches}")
+
+
+def loop_trips(trace_capped, full) -> tuple[int, int]:
+    """(total loop trips, a bound on the longest ray's) of the rays of
+    ``full``, the uncapped result, counted with K1's own cap: a ray that
+    resolves (hit, left the cube or forced) reports a depth of 1 or more,
+    and one still active after ``max_iters`` trips reports 0, so a ray's
+    trips are the caps T = 0, 1, ... under which it reports 0. The longest
+    ray takes at most the returned bound and more than 16 fewer."""
+    live = full.depth > 0
+    total = torch.zeros((), dtype=torch.int64, device=full.depth.device)
+    cap = 0
+    while True:
+        left = (trace_capped(cap).depth == 0) & live
+        total += left.sum()
+        if cap % 16 == 15 and not bool(left.any()):
+            return int(total), cap
+        cap += 1
+
+
+def brick_trace_rows(dec, visits) -> tuple[int, int]:
+    """(pool rows, brick rows) that a brick-mode trace read, from its visit
+    counts ``visits`` on the decorated pool ``dec`` (a well-formed one). A
+    brick root whose children row holds a mark was entered, by the main
+    body or from an enclosing brick, and its brick row read: its sub-steps
+    mark its children, a row the main body never reads. Every other marked
+    row is a pool row that the main body read."""
+    from octree_tracer_tpu_torch import state
+    w = state.widen_u32(dec)
+    marked = torch.nn.functional.pad(visits, (0, -visits.shape[0] % 8)).view(-1, 8)
+    marked = (marked != 0).any(dim=1)
+    slots = torch.nonzero(visits).flatten()
+    roots = slots[(w[slots] & 1) == 1]
+    entered = int(marked[((w[roots] >> 4) >> 3).clamp(max=marked.shape[0] - 1)].sum())
+    return int(marked.sum()) - entered, entered
+
+
+def brick_scenes(dev) -> str:
+    """K1's brick forms against their plain version on small scenes on the
+    card: random trees under random rays (origins outside the cube
+    included) and a dense slab at max_steps=6 (forced caps, rays leaving
+    the cube), both restart forms, counts; the malformed pools with bricks
+    built from them, counts and flags and the shadow mode."""
+    from octree_tracer_tpu_torch import scenes, state
+    from octree_tracer_tpu_torch.core import CpuOctree
+    from octree_tracer_tpu_torch.render import bricks, tracer
+
+    def tree(depth, voxels, seed, side_depth=None):
+        rng = np.random.default_rng(seed)
+        t = CpuOctree(0)
+        side = 1 << (side_depth or depth)
+        for c in rng.integers(0, side, (voxels, 3)):
+            t.put_in_voxel(c.astype(np.float32) / side * 2 - 1, int(rng.integers(1, 1 << 24)),
+                           depth)
+        return t.to_words()
+
+    def rays(seed, n, span):
+        rng = np.random.default_rng(seed)
+        o = rng.uniform(-span, span, (n, 3)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+    def same(kw, words, o, d, what, flags=(False, True)):
+        dec, br = bricks.build_bricks(words)
+        v_p = torch.zeros(words.shape[0], dtype=torch.int32, device=dev)
+        r_p = tracer.trace_plain(dec, o, d, bricks=br, visits=v_p, **kw)
+        for f in flags:
+            v_k = torch.zeros_like(v_p)
+            r_k = tracer.trace(dec, o, d, bricks=br, visits=v_k, visit_flags=f, **kw)
+            differ = [x for x, a, b in zip(r_k._fields, r_k, r_p) if not torch.equal(a, b)]
+            check(not differ, f"brick trace: {differ} differ from plain on {what}")
+            want = (v_p > 0).int() if f else v_p
+            check(torch.equal(v_k, want), f"brick trace visits (flags {f}) differ from "
+                  f"plain on {what}")
+        sh_k, sh_p = torch.zeros_like(v_p), torch.zeros_like(v_p)
+        kw = {k: v for k, v in kw.items() if k != "max_iters"}  # the shadow mode's default
+        h_k = tracer.trace_shadow(dec, r_k, cull=False, bricks=br, visits=sh_k,
+                                  image_width=0, **kw)
+        h_p = tracer.trace_plain(dec, *tracer.shadow_rays(r_k, cull=False), bricks=br,
+                                 visits=sh_p, **kw).hit
+        check(torch.equal(h_k, h_p) and torch.equal(sh_k, sh_p),
+              f"brick shadow mode differs from plain on {what}")
+        return r_k
+
+    out = []
+    for depth, voxels, seed in ((3, 80, 24), (5, 400, 25), (6, 900, 26)):
+        words = state.u32_to_device(tree(depth, voxels, seed), dev)
+        o, d = rays(seed, 4096, 3.0)
+        for restart in (True, False):
+            for k in (1, 4):
+                r = same(dict(parent_restart=restart, brick_k=k), words, o, d,
+                         f"tree {depth}/{voxels}, restart {restart}, brick_k {k}")
+        out.append(int(r.hit.sum()))
+    words = state.u32_to_device(tree(4, 500, 3, side_depth=4), dev)
+    o, d = rays(3, 4096, 1.0)
+    r = same(dict(max_steps=6), words, o, d, "dense slab, max_steps 6")
+    forced, left = int(r.forced.sum()), int((~r.hit).sum())
+    check(forced > 0 and left > 0, f"slab: {forced} forced, {left} rays left the cube")
+    mal = 0
+    for name, pool in scenes.malformed_pools().items():
+        words = state.u32_to_device(pool, dev)
+        for cam in ((-0.35, 0.55, -0.6), (0.0, 0.3, -0.45), (0.4, 0.6, -2.2)):
+            d = rays(7, 2048, 0.0)[1]
+            o = torch.tensor(cam, dtype=torch.float32, device=dev).expand(2048, 3).contiguous()
+            for restart in (True, False):
+                r = same(dict(parent_restart=restart, max_iters=600), words, o, d,
+                         f"{name} from {cam}, restart {restart}")
+                mal += int(r.hit.sum())
+    return (f"kernel equal to plain (every field, counts, flags, shadow hits and counts) on "
+            f"random trees of 3/5/6 levels, 4096 random rays each, both restart forms, "
+            f"brick_k 1 and 4 ({out} hits), a dense slab at max_steps 6 ({forced} forced, "
+            f"{left} out of the cube) and the malformed pools from 3 points, both forms "
+            f"({mal} hits)")
+
+
+def bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k, ci,
+                       card) -> None:
+    """Phase 9c: brick maps and paged pools on deep10 at 1080p. K10 equal to
+    its plain version and to ``build_bricks_np`` on deep10's pool and the
+    malformed pools, timed; K1's brick forms (no table) equal to their plain
+    version on every field, the shadow mask and every visit slot, in both
+    restart forms (counts and flags) at brick_k 4 and the parent form's
+    primary at brick_k 1, and to the no-table form without bricks on every
+    field; small scenes on the card (``brick_scenes``); the primary pass,
+    the shadow mode and the shadowed u8 frame timed in turn against the
+    no-table form and the combined table; then the slice's path counted
+    (build_bricks, raygen, the frame with bricks), and the paged frame
+    (``build_pages``, ``render_frame(paged=...)``) equal to the unpaged
+    one after the remap, K1 over the relayout timed against the original
+    pool."""
+    from octree_tracer_tpu_torch import kernels, scenes, state
+    from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
+    from octree_tracer_tpu_torch.probes.gather_probe import time_in_turn
+    from octree_tracer_tpu_torch.render import bricks, camera, paging, tracer
+
+    n_words, n = words.shape[0], W * H
+    flat = dirs.reshape(-1, 3)
+    origin = origins[0]
+
+    # K10, exact against its plain version and the host NumPy version.
+    dec, br = bricks.build_bricks(words)
+    dec_p, br_p = bricks.build_bricks_plain(words)
+    check(torch.equal(dec, dec_p) and torch.equal(br, br_p),
+          "build_bricks kernel differs from its plain version on deep10")
+    k10_err = max_abs_err(((dec, dec_p), (br, br_p)))
+    t0 = time.perf_counter()
+    dec_np, br_np = bricks.build_bricks_np(words_np)
+    np_s = time.perf_counter() - t0
+    check(np.array_equal(state.to_numpy_u32(dec), dec_np)
+          and np.array_equal(state.to_numpy_u32(br), br_np),
+          "build_bricks kernel differs from build_bricks_np on deep10")
+    del dec_p, br_p, br_np
+    for name, pool in scenes.malformed_pools().items():
+        w = state.u32_to_device(pool, dev)
+        got, plain, host = bricks.build_bricks(w), bricks.build_bricks_plain(w), \
+            bricks.build_bricks_np(pool)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain))
+              and all(np.array_equal(state.to_numpy_u32(a), b) for a, b in zip(got, host)),
+              f"build_bricks kernel differs from plain or host on {name}")
+    k10 = bricks.k10_bytes(words)
+    roots = int((dec & 1).sum())
+    report["brick_rows"].update(
+        max_abs_err=k10_err, ms=cuda_ms(lambda: bricks.build_bricks(words), 20),
+        alone_ms=device_ms(lambda: bricks.build_bricks(words), 20),
+        plain_ms=cuda_ms(lambda: bricks.build_bricks_plain(words), 2), host_np_s=np_s,
+        library_ms=None, brick_roots=roots, k10_bytes=k10, **bound(k10))
+    r = report["brick_rows"]
+    phase("9c K10 bricks", f"{card}: deep{DEPTH} pool ({n_words} words): decorated pool and "
+          f"brick table equal to build_bricks_plain and build_bricks_np, and on "
+          f"{sorted(scenes.malformed_pools())}; {roots} brick roots, table "
+          f"{br.numel() * 4 / 1e6:.1f} MB; kernel alone {r['alone_ms']:.4f} ms, wrapper "
+          f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({k10} bytes), plain "
+          f"{r['plain_ms']:.1f} ms, build_bricks_np {np_s:.2f} s")
+
+    # K1's brick forms on the frame's primaries and shadow rays, no table.
+    base = tracer.trace(words, origins, dirs)
+    entry, errs, exact = {}, [], []
+    for restart in (True, False):
+        form = "parent" if restart else "root"
+        kw = dict(bricks=br, brick_k=4, parent_restart=restart)
+        v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_p = tracer.trace_plain(dec, origins, flat, visits=v_p, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for flags, want in ((False, v_p), (True, (v_p > 0).int())):
+            v_k = torch.zeros_like(v_p)
+            r_k = tracer.trace(dec, origins, dirs, visits=v_k, visit_flags=flags, **kw)
+            differ = [f for f, a, b in zip(r_k._fields, r_k, r_p) if not torch.equal(a, b)]
+            check(not differ, f"bricks, {form} form: {differ} differ from plain")
+            check(torch.equal(v_k, want), f"bricks, {form} form, flags {flags}: visits "
+                  f"differ from plain on {int((v_k != want).sum())} slots")
+            errs.append(max_abs_err(zip(r_k, r_p)))
+            exact.append(torch.equal(v_k, want))
+            differ = [f for f, a, b in zip(r_k._fields, r_k, base) if not torch.equal(a, b)]
+            check(not differ, f"bricks, {form} form: {differ} differ from the no-table form")
+        sh_k, sh_p = torch.zeros_like(v_p), torch.zeros_like(v_p)
+        hit_k = tracer.trace_shadow(dec, r_k, cull=False, visits=sh_k, image_width=W, **kw)
+        hit_p = tracer.trace_plain(dec, *tracer.shadow_rays(r_k, cull=False), visits=sh_p,
+                                   **kw).hit
+        check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
+              f"bricks, {form} form: the shadow mode differs from plain")
+        errs.append(max_abs_err([(hit_k, hit_p)]))
+        exact.append(torch.equal(sh_k, sh_p))
+        pool_rows, brick_rows = brick_trace_rows(dec, v_p)
+        culled = tracer.trace_shadow(dec, r_k, image_width=W, **kw)
+        check(torch.equal(culled, tracer.trace_shadow(words, base, image_width=W)),
+              f"bricks, {form} form: the culled shadow mask differs from the no-table form's")
+        entry[form] = dict(marks=int(v_p.sum()), shadow_marks=int(sh_k.sum()),
+                           plain_ms=plain_s * 1e3, pool_rows=pool_rows,
+                           brick_rows=brick_rows)
+    r1 = tracer.trace(dec, origins, dirs, bricks=br, brick_k=1)
+    r1_p = tracer.trace_plain(dec, origins, flat, bricks=br, brick_k=1)
+    check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(r1, r1_p, base)),
+          "bricks at brick_k 1: the primary pass differs from plain or the no-table form")
+    errs.append(max_abs_err(zip(r1, r1_p)))
+    e = entry["parent"]
+    phase("9c K1 bricks", f"{card}: deep{DEPTH} {W}x{H}, no table, brick_k 4: every field, "
+          f"the shadow mask and all {n_words} visit slots equal to plain in both restart "
+          f"forms (counts and flags), every field and the culled shadow mask equal to the "
+          f"no-table form; brick_k 1 primary equal to plain and to the no-table form; parent "
+          f"form {e['marks']} marks ({e['shadow_marks']} shadow), {e['pool_rows']} pool rows "
+          f"and {e['brick_rows']} brick rows read; root form {entry['root']['marks']} marks; "
+          f"plain {e['plain_ms']:.0f} / {entry['root']['plain_ms']:.0f} ms")
+    phase("9c K1 bricks", f"{card}: {brick_scenes(dev)}")
+
+    # Times in turn: bricks against the no-table form and the combined table.
+    nt_v = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    tracer.trace(words, origins, dirs, visits=nt_v)
+    nt_rows = int(torch.unique(torch.nonzero(nt_v).flatten() >> 3).numel())
+    res_b = tracer.trace(dec, origins, dirs, bricks=br)
+    prim = time_in_turn({
+        "bricks": lambda: tracer.trace(dec, origins, dirs, bricks=br),
+        "bricks_k1": lambda: tracer.trace(dec, origins, dirs, bricks=br, brick_k=1),
+        "bricks_k8": lambda: tracer.trace(dec, origins, dirs, bricks=br, brick_k=8),
+        "no_table": lambda: tracer.trace(words, origins, dirs),
+        "combined": lambda: tracer.trace(words, origins, dirs, warp_table=table)}, 5, 10)
+    shadow = time_in_turn({
+        "bricks": lambda: tracer.trace_shadow(dec, res_b, bricks=br, image_width=W),
+        "no_table": lambda: tracer.trace_shadow(words, base, image_width=W),
+        "combined": lambda: tracer.trace_shadow(words, res_k, warp_table=table,
+                                                image_width=W)}, 5, 10)
+    frames = time_in_turn({
+        "bricks": lambda: tracer.render_frame(dec, origin, dirs, bricks=br, u8_image=True),
+        "no_table": lambda: tracer.render_frame(words, origin, dirs, u8_image=True),
+        "combined": lambda: tracer.render_frame(words, origin, dirs, warp_table=table,
+                                                u8_image=True)}, 5, 5)
+    med = {k: {f: t[f]["median"] for f in t} for k, t in
+           (("primary", prim), ("shadow", shadow), ("frame", frames))}
+    # Loop trips a ray, by the kernel's own cap (its visit counts hold the
+    # brick forms' sub-steps too).
+    trips = {
+        "bricks": loop_trips(lambda c: tracer.trace(dec, origins, dirs, bricks=br,
+                                                    max_iters=c), res_b),
+        "bricks_k1": loop_trips(lambda c: tracer.trace(dec, origins, dirs, bricks=br,
+                                                       brick_k=1, max_iters=c), res_b),
+        "no_table": loop_trips(lambda c: tracer.trace(words, origins, dirs, max_iters=c),
+                               base),
+        "combined": loop_trips(lambda c: tracer.trace(words, origins, dirs, warp_table=table,
+                                                      max_iters=c), res_k)}
+
+    # The slice's path once, counted: the brick build, raygen, the frame.
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    dec2, br2 = bricks.build_bricks(words)
+    origin2, dirs2 = camera.generate_rays_device(ci, W, H, dev)
+    img_b, res_f, _ = tracer.render_frame(dec2, origin2, dirs2, bricks=br2, u8_image=True)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("brick_rows", "raygen", "trace",
+                                                   "shade_encode")}
+    check(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
+    img_0, res_0, _ = tracer.render_frame(words, origin2, dirs2, u8_image=True)
+    check(torch.equal(img_b, img_0) and all(torch.equal(a, b) for a, b in zip(res_f, res_0)),
+          "the brick frame differs from the no-table frame")
+    report["brick_rows"]["launches"] = launches["brick_rows"]
+    report["trace"]["bricks"] = dict(
+        entry, max_abs_err=max(errs), visits_exact=all(exact), frame_launches=launches["trace"],
+        primary_ms=med["primary"], shadow_ms=med["shadow"], frame_ms=med["frame"],
+        primary_range=prim["bricks"]["range"], no_table_trips=int(nt_v.sum()),
+        loop_trips={k: {"total": v[0], "per_ray": v[0] / int((base.depth > 0).sum()),
+                        "longest_at_most": v[1]} for k, v in trips.items()},
+        no_table_rows=nt_rows, library_ms=None,
+        # Each byte the primary pass must move, once: the pool rows and the
+        # brick rows (a 32-byte sector each) its trips read, the origin, each
+        # direction in and 42 bytes of results out; beside it the no-table
+        # form's, from its visits.
+        **bound((e["pool_rows"] + e["brick_rows"]) * 32 + 12 + n * 54),
+        no_table_bound_ms=bound(nt_rows * 32 + 12 + n * 54)["bound_ms"])
+    t = report["trace"]["bricks"]
+    phase("9c K1 bricks", f"{card}: in turn, median ms: primary alone {med['primary']}; "
+          f"shadow mode alone {med['shadow']}; shadowed u8 frame {med['frame']}; primary "
+          f"marks: bricks {e['marks']}, no table {t['no_table_trips']}; loop trips (total, "
+          f"a ray, the longest ray's within 16): {t['loop_trips']}; bound "
+          f"{t['bound_ms']:.4f} ms (no table {t['no_table_bound_ms']:.4f}); the slice's path "
+          f"(build_bricks, raygen, frame) launches {launches}, image and fields equal to the "
+          f"no-table frame")
+
+    # Paged pools: the relayout on the host, the frame through it.
+    t0 = time.perf_counter()
+    pg = paging.build_pages(words_np)
+    pages_s = time.perf_counter() - t0
+    geo = (pg.top_rows, pg.page_rows, pg.n_pages)
+    pw = state.u32_to_device(pg.words, dev)
+    old = torch.from_numpy(pg.old_of_new).to(dev)
+    kernels.reset_launches()
+    img_pg, res_pg, _ = tracer.render_frame(pw, origin2, dirs2, u8_image=True, paged=geo,
+                                            paged_old_of_new=old)
+    torch.cuda.synchronize()
+    pg_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(torch.equal(img_pg, img_0), "the paged frame's image differs from the unpaged one")
+    differ = [f for f, a, b in zip(res_pg._fields, res_pg, res_0) if not torch.equal(a, b)]
+    check(not differ, f"the paged frame's {differ} differ from the unpaged frame's")
+    paged_t = time_in_turn({
+        "paged": lambda: tracer.trace(pw, origins, dirs, paged=geo),
+        "original": lambda: tracer.trace(words, origins, dirs)}, 5, 10)
+    report["trace"]["paged"] = dict(
+        build_pages_s=pages_s, levels=pg.levels, top_rows=pg.top_rows,
+        page_rows=pg.page_rows, n_pages=pg.n_pages, words=int(pg.words.shape[0]),
+        frame_launches=pg_launches.get("trace", 0),
+        primary_ms={k: v["median"] for k, v in paged_t.items()})
+    phase("9c paged", f"{card}: build_pages on deep{DEPTH} ({n_words} words) in {pages_s:.2f} "
+          f"s on the host: levels {pg.levels}, top {pg.top_rows} rows, {pg.n_pages} pages of "
+          f"{pg.page_rows} rows ({pg.words.shape[0]} words); the paged frame (no table, "
+          f"shadows, u8) equal to the unpaged one on every pixel and field after the remap; "
+          f"launches {pg_launches}; primary alone, in turn: {paged_t}")
 
 
 def gen_phases(dev, report, card) -> None:

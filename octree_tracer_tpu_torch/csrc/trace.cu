@@ -3,7 +3,8 @@
 // Replaces the XLA while-loop program of octree_tracer_tpu/render/tracer.py:135
 // `trace` with `_init_state` (:239), `_make_body` (:372), `_warp_lookup`
 // (:2916), `_ray_box_dist` (:117), `_in_bounds` (:99) and `_finish` (:342),
-// without bricks, paging, pack9 or fuse_sibling, in both restart forms.
+// and the brick DDA of `_brick_substeps` (:832) and `_refetch_words` (:318),
+// without paging, pack9 or fuse_sibling, in both restart forms.
 // Each loop trip of a ray is one `_make_body` iteration for that ray: descend
 // one level through the group row, or take a t_max boundary step (2e-6 nudge)
 // and restart at the parent, at the warp-table cell or at the root; with a
@@ -15,6 +16,24 @@
 // re-descent does (src/shader.wgsl:213-245), so its visit counts have the
 // reference counter's magnitudes. ROOT is a template parameter: the parent
 // form keeps its code and registers, and the root form carries no parent test.
+//
+// Brick mode (BRICKS, JAX `trace(bricks=...)`, render/bricks.py; only without
+// a table, which JAX forbids beside bricks): a descent into a decorated node
+// (bit 0 of the word) switches the ray to an arithmetic DDA over the node's
+// 4x4x4 brick from its next trip on. A trip in brick mode reads the first 16
+// bytes of the node's brick row (w0, the 64 occupancy bits and the children
+// group) and takes up to brick_k sub-steps, each one reference step at the
+// actual leaf: the two-level point location by the descent's comparisons; a
+// filled coarse leaf is a hit, a filled fine cell descends into the interior
+// child's brick, an empty cell takes the t_max step from its own cell. A step
+// out of the brick's cell resumes from the brick root's parent cell when that
+// holds the position, else from the root, whatever the restart form
+// (tracer.py:1017-1046). In brick mode `node` is the brick root's slot, `cp`
+// and `depth` its cell and `inv1` its half side 2^-depth. The DDA never reads
+// the leaf word: `word` is read at `index` after the loop, for hits that are
+// not forced (tracer.py:318-340). As JAX reads one table of pool rows and then
+// brick rows, a node row past the pool's end reads a brick row (the last one
+// at most), and a brick row past the table's end the last one.
 //
 // What bounds it on the H100: every trip is one dependent 4-byte load from
 // the pool (the child word of the 32-byte group row), and every boundary step
@@ -54,7 +73,8 @@
 // find each other with __match_any_sync and one of them adds their number,
 // so the first descents of a tile, which share the root group, take one
 // atomic instead of 32. Counting is a template parameter, so frames that do
-// not count keep the unmarked kernel's registers.
+// not count keep the unmarked kernel's registers. A brick sub-step marks
+// children group + ccode (tracer.py:943-948), dropped past the pool's end.
 #include <climits>
 
 #include "common.cuh"
@@ -93,6 +113,8 @@ struct TraceArgs {
   int32_t* depth;
   uint32_t* word;
   int32_t* visits;            // [n_words] or null
+  const uint32_t* bricks;     // [n_words, 8] brick rows (brick mode)
+  int brick_k;                // sub-steps a brick trip
 };
 
 struct Resume {
@@ -159,10 +181,23 @@ __device__ __forceinline__ int32_t ray_of(const TraceArgs& a, int32_t tile, int 
   return (x < a.width && i < a.n) ? i : -1;
 }
 
+// One visit mark at `slot` (counts or flags), dropped past the pool's end.
+template <int VISITS>
+__device__ __forceinline__ void mark(int32_t* visits, int32_t slot, int32_t n_words) {
+  if (VISITS != 0 && static_cast<uint32_t>(slot) < static_cast<uint32_t>(n_words)) {
+    if (VISITS == 1) {
+      const unsigned peers = __match_any_sync(__activemask(), slot);
+      if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(visits + slot, __popc(peers));
+    } else {
+      visits[slot] = 1;
+    }
+  }
+}
+
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
 // VISITS: 0 = none, 1 = counts, 2 = 0/1 flags. SHADOW: the shadow mode.
-// ROOT: the root-restart form.
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
+// ROOT: the root-restart form. BRICKS: brick mode (TABLE 0 only).
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
 __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
   constexpr bool kCombined = TABLE == 2;
   float o[3], d[3];
@@ -242,8 +277,122 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
     // plain version's `_pow2`. A pool whose pointers cycle can send a
     // descent past 126 levels, where the exponent bits alone would wrap.
     float inv1 = ot::pow2(-(depth + 1));
+    bool bmode = false;
 
     for (int it = 0; it < a.max_iters; ++it) {
+      if (BRICKS && bmode) {
+        // One brick trip: the root's row, then up to brick_k sub-steps.
+        // (Unsigned: a slot from a garbage table's w3 reads a row inside.)
+        const uint32_t brow =
+            min(static_cast<uint32_t>(node), static_cast<uint32_t>(n_words - 1));
+        const uint4 br =
+            __ldg(reinterpret_cast<const uint4*>(a.bricks) + 2 * static_cast<int64_t>(brow));
+        const float h = inv1, q1 = h * 0.5f, q2 = h * 0.25f;
+        bool done = false;
+        for (int sub = 0; sub < a.brick_k; ++sub) {
+          bool b1[3], b2[3];
+          float m1[3], m2[3];
+          for (int k = 0; k < 3; ++k) {
+            b1[k] = STRICT ? v[k] > cp[k] : v[k] >= cp[k];
+            m1[k] = cp[k] + (b1[k] ? q1 : -q1);
+            b2[k] = STRICT ? v[k] > m1[k] : v[k] >= m1[k];
+            m2[k] = m1[k] + (b2[k] ? q2 : -q2);
+          }
+          const int ccode = b1[0] * 4 + b1[1] * 2 + b1[2];
+          const int bit = ccode * 8 + b2[0] * 4 + b2[1] * 2 + b2[2];
+          const bool occ = (((bit < 32 ? br.y : br.z) >> (bit & 31)) & 1u) != 0u;
+          const bool cl = ((br.x >> (ccode + 1)) & 1u) != 0u;
+          const int32_t tgt = static_cast<int32_t>(br.w) + ccode;
+          mark<VISITS>(a.visits, tgt, n_words);
+          if (occ && cl) {  // a filled coarse leaf: hit
+            hit = true;
+            index = tgt;
+            out_steps = steps;
+            out_depth = depth + 1;
+            for (int k = 0; k < 3; ++k) {
+              hp[k] = v[k];
+              hn[k] = nrm[k];
+            }
+            done = true;
+            break;
+          }
+          if (occ) {  // a filled fine cell: on in the interior child's brick
+            node = tgt;
+            depth += 1;
+            inv1 = q1;
+            for (int k = 0; k < 3; ++k) cp[k] = m1[k];
+            break;
+          }
+          // An empty cell: the boundary step from the actual cell.
+          const float half = cl ? q1 : q2;
+          float t[3];
+          for (int k = 0; k < 3; ++k) {
+            t[k] = (((cl ? m1[k] : m2[k]) - p[k]) + rs[k] * half) / d[k];
+          }
+          const bool face[3] = {t[0] <= fminf(t[1], t[2]), t[1] <= fminf(t[2], t[0]),
+                                t[2] <= fminf(t[0], t[1])};
+          const float tc = fminf(fminf(t[0], t[1]), t[2]);
+          float nn[3], q[3];
+          bool inb = true;
+          for (int k = 0; k < 3; ++k) {
+            nn[k] = (face[k] ? 1.0f : 0.0f) * -rs[k];
+            q[k] = (p[k] + d[k] * tc) - nn[k] * 2e-6f;
+            inb = inb && q[k] >= -1.0f && q[k] < 1.0f;
+          }
+          if (!inb) {  // left the root cube: a miss with zero pos and normal
+            out_steps = steps;
+            out_depth = depth + (cl ? 1 : 2);
+            done = true;
+            break;
+          }
+          if (steps + 1 > a.max_steps) {  // the step cap forces a hit
+            hit = true;
+            forced = true;
+            out_steps = steps + 1;
+            out_depth = a.max_steps;
+            for (int k = 0; k < 3; ++k) {
+              hp[k] = q[k];
+              hn[k] = nn[k];
+            }
+            done = true;
+            break;
+          }
+          bool inc = true;
+          for (int k = 0; k < 3; ++k) {
+            v[k] = q[k];
+            nrm[k] = nn[k];
+            inc = inc && (STRICT ? (q[k] > cp[k] - h && q[k] <= cp[k] + h)
+                                 : (q[k] >= cp[k] - h && q[k] < cp[k] + h));
+          }
+          steps += 1;
+          if (!inc) {
+            // Out of the brick's cell: its parent's cell (the centre is exact
+            // on dyadic centres) when that holds the position, else the root.
+            const float h2 = h * 2.0f;
+            float pc[3];
+            bool inp = true;
+            for (int k = 0; k < 3; ++k) {
+              pc[k] = cp[k] - (((node >> (2 - k)) & 1) != 0 ? h : -h);
+              inp = inp && (STRICT ? (q[k] > pc[k] - h2 && q[k] <= pc[k] + h2)
+                                   : (q[k] >= pc[k] - h2 && q[k] < pc[k] + h2));
+            }
+            bmode = false;
+            if (inp) {  // inv1 stays h = 2^-(depth + 1) of the parent
+              node &= ~7;
+              depth -= 1;
+              for (int k = 0; k < 3; ++k) cp[k] = pc[k];
+            } else {
+              node = 0;
+              depth = 0;
+              inv1 = ot::pow2(-1);
+              for (int k = 0; k < 3; ++k) cp[k] = 0.0f;
+            }
+            break;
+          }
+        }
+        if (done) break;
+        continue;
+      }
       const int32_t depth1 = depth + 1;
       bool pb[3];
       for (int k = 0; k < 3; ++k) pb[k] = STRICT ? v[k] > cp[k] : v[k] >= cp[k];
@@ -251,22 +400,30 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       float np[3];
       for (int k = 0; k < 3; ++k) np[k] = cp[k] + (pb[k] ? inv1 : -inv1);
       const int32_t idx = node + child;
-      if (VISITS != 0 && idx < n_words) {  // out-of-pool marks drop, as JAX's
-        if (VISITS == 1) {
-          const unsigned peers = __match_any_sync(__activemask(), idx);
-          if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(a.visits + idx, __popc(peers));
-        } else {
-          a.visits[idx] = 1;
-        }
-      }
+      mark<VISITS>(a.visits, idx, n_words);  // out-of-pool marks drop, as JAX's
       // JAX's row gather: word `child` of row min(node / 8, rows - 1) of the
       // pool padded with zero words to whole rows (XLA clamps the row, not
-      // the word). In a well-formed pool this is word idx.
-      const int32_t at = (min(node >> 3, last_row) << 3) | child;
-      const uint32_t word = at < n_words ? __ldg(words + at) : 0u;
+      // the word). In a well-formed pool this is word idx. In brick mode the
+      // rows past the pool's are the brick table's.
+      uint32_t word;
+      if (BRICKS && (static_cast<uint32_t>(node) >> 3) > static_cast<uint32_t>(last_row)) {
+        const uint32_t brow = min((static_cast<uint32_t>(node) >> 3) - last_row - 1,
+                                  static_cast<uint32_t>(n_words - 1));
+        word = __ldg(a.bricks + 8 * static_cast<int64_t>(brow) + child);
+      } else {
+        const int32_t at = (min(node >> 3, last_row) << 3) | child;
+        word = at < n_words ? __ldg(words + at) : 0u;
+      }
       const uint32_t payload = word >> 4;
 
       if (payload < ot::kVoxelOffset) {  // interior: descend
+        if (BRICKS && (word & 1u) != 0u) {  // a brick root: brick mode next trip
+          node = idx;
+          depth = depth1;
+          bmode = true;
+          for (int k = 0; k < 3; ++k) cp[k] = np[k];
+          continue;
+        }
         node = static_cast<int32_t>(payload);
         depth = depth1;
         inv1 *= 0.5f;
@@ -363,6 +520,11 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
 
   a.hit[i] = hit;
   if (SHADOW) return;
+  if (BRICKS) {  // `_refetch_words`: the word at max(index, 0), by the row clamp
+    const int32_t slot = max(index, 0);
+    const int32_t at = (min(slot >> 3, (a.n_words - 1) >> 3) << 3) | (slot & 7);
+    out_word = hit && !forced && at < a.n_words ? __ldg(a.words + at) : 0u;
+  }
   a.forced[i] = forced;
   a.index[i] = index;
   a.steps[i] = out_steps;
@@ -376,24 +538,30 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
 
 // One warp a tile, in a grid of all tiles. Five resident blocks an SM (40
 // warps) hold the primary instantiations to 48 registers, where they
-// otherwise take 51 and fit four (PERF.md §6).
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
-__global__ void __launch_bounds__(ot::kBlock, 5) trace_kernel(const TraceArgs a) {
+// otherwise take 51 and fit four (PERF.md §6). The brick forms, whose trip
+// holds the brick's state beside the ray's, fit four (64 registers).
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
+__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const TraceArgs a) {
   const int lane = threadIdx.x & 31;
   const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
   if (tile >= a.n_tiles) return;
   const int32_t i = ray_of(a, tile, lane);
-  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT>(a, i);
+  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i);
 }
 
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT>
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS = false>
 void launch_kernel(const TraceArgs& a, cudaStream_t s) {
-  trace_kernel<STRICT, TABLE, VISITS, SHADOW, ROOT>
+  trace_kernel<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>
       <<<(a.n_tiles + kWarps - 1) / kWarps, ot::kBlock, 0, s>>>(a);
 }
 
+// Brick mode (a.bricks set) is instantiated without a table only.
 template <bool STRICT, int VISITS, bool SHADOW, bool ROOT>
 void launch_table(const TraceArgs& a, int table_mode, cudaStream_t s) {
+  if (a.bricks != nullptr) {
+    launch_kernel<STRICT, 0, VISITS, SHADOW, ROOT, true>(a, s);
+    return;
+  }
   switch (table_mode) {
     case 0: launch_kernel<STRICT, 0, VISITS, SHADOW, ROOT>(a, s); break;
     case 1: launch_kernel<STRICT, 1, VISITS, SHADOW, ROOT>(a, s); break;
@@ -450,15 +618,16 @@ int32_t clamp_words(int64_t n_words) {
 // 1 = warp table, 2 = combined warp+skip table; root != 0 restarts at the
 // warp cell or the root after every boundary step (parent_restart=False);
 // visit_mode: 0 = no visits (visits null), 1 = counts, 2 = 0/1 flags into
-// visits int32[n_words]; n < 2^31 / 3. Returns cudaGetLastError() after the
-// launch.
+// visits int32[n_words]; bricks (u32[n_words, 8], 16-byte aligned, with
+// table_mode 0) or null: brick mode, brick_k sub-steps a brick trip;
+// n < 2^31 / 3. Returns cudaGetLastError() after the launch.
 extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                         int origin_stride, const void* dirs, const void* active_init,
                         int64_t n, int width, const void* table, int table_mode,
                         int levels, int strict, int root, int max_steps, int max_iters,
                         void* hit, void* forced, void* index, void* hit_pos,
                         void* normal, void* steps, void* depth, void* word, void* visits,
-                        int visit_mode, void* stream) {
+                        int visit_mode, const void* bricks, int brick_k, void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
   a.words = static_cast<const uint32_t*>(words);
@@ -482,6 +651,8 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
   a.depth = static_cast<int32_t*>(depth);
   a.word = static_cast<uint32_t*>(word);
   a.visits = static_cast<int32_t*>(visits);
+  a.bricks = static_cast<const uint32_t*>(bricks);
+  a.brick_k = brick_k;
   set_tiles(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch<false>(a, strict, root, table_mode, visit_mode, s);
@@ -497,7 +668,8 @@ extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* p
                                float sy, float sz, int cull, int64_t n, int width,
                                const void* table, int table_mode, int levels, int strict,
                                int root, int max_steps, int max_iters, void* hit_out,
-                               void* visits, void* stream) {
+                               void* visits, const void* bricks, int brick_k,
+                               void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
   a.words = static_cast<const uint32_t*>(words);
@@ -517,6 +689,8 @@ extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* p
   a.max_iters = max_iters;
   a.hit = static_cast<uint8_t*>(hit_out);
   a.visits = static_cast<int32_t*>(visits);
+  a.bricks = static_cast<const uint32_t*>(bricks);
+  a.brick_k = brick_k;
   set_tiles(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch<true>(a, strict, root, table_mode, visits != nullptr ? 1 : 0, s);

@@ -24,12 +24,16 @@ word ``child`` of row ``min(node // 8, rows - 1)`` of the pool padded with
 zeros to whole rows, so a malformed pool's pointer past the end gives
 JAX's result.
 
+``trace``, ``trace_shadow`` and ``render_frame`` take JAX's ``bricks`` and
+``brick_k`` (K1's brick mode over ``bricks.build_bricks``'s table, K10) and
+``paged`` (a ``paging.build_pages`` relayout, traced by K1 as it is;
+``render_frame`` maps hit slots back with ``paged_old_of_new``).
 ``render_frame`` takes none of the JAX ``render_frame``'s TPU scheduling
 arguments (``mode``, ``tile_size``, ``beams``, ``beam_iters``,
 ``fit_stages``, ``raw_result``, ``pre_permuted``, ``pack_pool``,
-``shadow_seed``, ``warp_in_body``, ``bricks``, ``paged``): each of those is
-held bit-identical to plain ``trace`` by its own contract, so one traversal
-kernel yields their results. The port returns results in pixel order.
+``shadow_seed``, ``warp_in_body``): each of those is held bit-identical to
+plain ``trace`` by its own contract, so one traversal kernel yields their
+results. The port returns results in pixel order.
 
 Pool words, table words and ``TraceResult.word`` are int32 tensors holding
 u32 bits (see ``state.py``).
@@ -175,10 +179,41 @@ def _max_iters(max_steps: int, max_iters: int | None) -> int:
     return int(max_iters)
 
 
+def _check_modes(words, warp_table, bricks, paged) -> None:
+    """JAX's exclusions (tracer.py:420-426), ``paged``'s geometry against
+    the pool's length, and the brick table's shape."""
+    if paged is not None:
+        if bricks is not None or warp_table is not None:
+            raise ValueError("paged excludes bricks/warp_table/fuse_sibling")
+        if len(paged) != 3 or not all(isinstance(x, int) and x >= 1 for x in paged):
+            raise ValueError(f"paged must be (top_rows, page_rows, n_pages) ints >= 1, "
+                             f"got {paged}")
+        top_rows, page_rows, n_pages = paged
+        if (top_rows + page_rows * n_pages) * 8 != words.shape[0]:
+            raise ValueError(f"paged geometry {paged} holds "
+                             f"{(top_rows + page_rows * n_pages) * 8} words, the pool "
+                             f"{words.shape[0]}")
+    if bricks is not None:
+        if warp_table is not None:
+            raise ValueError("bricks exclude warp_table/fuse_sibling")
+        kernels.check(bricks, "bricks", _I32, (words.shape[0], 8), words.device)
+
+
+def _brick_read(pool, bt, node, child):
+    """The word JAX's brick mode reads for child ``child`` of ``node``: its
+    one table of the pool's rows, then the brick rows (tracer.py:430), with
+    the row clamped into that table, so a pointer past the pool's end reads
+    a brick row, the last one at most."""
+    r = node >> 3
+    rows = pool.shape[0] // 8
+    brick = bt[(r - rows).clamp(0, bt.shape[0] - 1), child]
+    return torch.where(r < rows, pool[_row_read(pool, node, child)], brick)
+
+
 def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
                 strict_descent=True, warp_table=None, visits=None,
                 visit_flags=False, parent_restart=True,
-                max_iters=None) -> TraceResult:
+                max_iters=None, bricks=None, brick_k=4, paged=None) -> TraceResult:
     """Plain PyTorch version of kernel K1: JAX ``trace``, iterated over the
     rays still active.
 
@@ -190,12 +225,16 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     reference's full re-descent, whose visit counts are the oracle's.
     ``visits`` (int32[pool], updated in place) gets one mark at the slot
     each trip reads, as JAX ``_visit_mark`` (tracer.py:355): a count, or a
-    1 under ``visit_flags``."""
+    1 under ``visit_flags``. ``bricks`` runs JAX's brick DDA
+    (``_brick_substeps``, tracer.py:832), ``paged`` checks the geometry of
+    a relayouted pool (``trace`` says more of both)."""
+    _check_modes(words, warp_table, bricks, paged)
     dev = dirs.device
     n = dirs.shape[0]
     n_words = words.shape[0]
     pool = _pool_rows(words)
     table = widen_u32(warp_table) if warp_table is not None else None
+    bt = widen_u32(bricks) if bricks is not None else None
     levels = warp_table_levels(warp_table) if table is not None else 0
     combined = table is not None and warp_table_combined(warp_table)
     side = 1 << levels
@@ -218,8 +257,18 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     out_steps = torch.zeros(n, dtype=_I32, device=dev)
     out_depth = torch.zeros(n, dtype=_I32, device=dev)
     out_word = torch.zeros(n, dtype=torch.int64, device=dev)
+    outs = {"hit": hit, "forced": forced, "index": index, "hit_pos": hit_pos,
+            "normal": normal, "steps": out_steps, "depth": out_depth}
 
-    # Working set: the live rays' state (ids index the outputs).
+    def mark(slots):
+        marked = slots[(slots >= 0) & (slots < n_words)]  # others drop, as JAX's
+        if visit_flags:
+            visits[marked] = 1
+        else:
+            visits.index_add_(0, marked, torch.ones_like(marked, dtype=_I32))
+
+    # Working set: the live rays' state (ids index the outputs); bm: in
+    # brick mode, where node is the brick root's slot.
     ids = torch.nonzero(active).squeeze(1)
     p = pos[ids]            # entry position = origin of every boundary step
     d = d[ids]
@@ -233,6 +282,7 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     depth = torch.zeros(m, dtype=torch.int64, device=dev)
     steps = torch.zeros(m, dtype=torch.int64, device=dev)
     skw = torch.zeros(m, dtype=torch.int64, device=dev)
+    bm = torch.zeros(m, dtype=torch.bool, device=dev)
     if table is not None:
         node, cp, depth, _, skip = _warp_lookup(table, levels, p, strict_descent,
                                                 combined)
@@ -242,25 +292,43 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     for _ in range(_max_iters(max_steps, max_iters)):
         if ids.shape[0] == 0:
             break
+        # The brick lanes' trip, from the trip's starting state.
+        bi = torch.nonzero(bm).squeeze(1) if bt is not None else None
+        if bi is not None and bi.numel():
+            # The slot's row; the last past the table's end (or below 0, as
+            # the kernel's unsigned clamp).
+            brow = torch.where(node[bi] >= 0, node[bi].clamp(max=n_words - 1), n_words - 1)
+            b = _brick_substeps(
+                bt[brow], node[bi], cp[bi], depth[bi], v[bi], nrm[bi], steps[bi],
+                p[bi], d[bi], rs[bi], strict_descent, max_steps, brick_k,
+                mark if visits is not None else None)
+            r = ids[bi]
+            for mask, fields in b["records"]:
+                for name, val in fields.items():
+                    dst = outs[name]
+                    dst[r[mask]] = val[mask].to(dst.dtype) if torch.is_tensor(val) else val
+
         depth1 = depth + 1
         pb = v > cp if strict_descent else v >= cp
         child = pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
         inv1 = _pow2(-depth1)[:, None]
         np_ = cp + (pb.to(_F32) * 2.0 - 1.0) * inv1
         idx = node + child
-        word = pool[_row_read(pool, node, child)]
+        a = ~bm if bt is not None else None
+        if bt is None:
+            word = pool[_row_read(pool, node, child)]
+        else:
+            word = _brick_read(pool, bt, node, child)
         if visits is not None:
-            marked = idx[idx < n_words]  # out-of-pool marks drop, as JAX's
-            if visit_flags:
-                visits[marked] = 1
-            else:
-                visits.index_add_(0, marked, torch.ones_like(marked, dtype=_I32))
+            mark(idx if a is None else idx[a])
         payload = word >> 4
         leaf = payload >= VOXEL_OFFSET
         filled = payload > VOXEL_OFFSET
         hit_now = leaf & filled
         interior = ~leaf
         stepping = leaf & ~filled
+        if a is not None:
+            hit_now, interior, stepping = hit_now & a, interior & a, stepping & a
 
         # Boundary step (used by the stepping rays).
         t = ((np_ - p) + rs * inv1) / d
@@ -329,7 +397,10 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
             depth = torch.where(go_warp, w_d, depth)
             if combined:
                 skw = torch.where(go, _decode_skip(w_skip, oct_), skw)
-        node = torch.where(interior, payload, torch.where(go_root, 0, node))
+        # A descent into a decorated node enters brick mode at that slot.
+        enter_b = interior & ((word & 1) != 0) if bt is not None else None
+        target = payload if bt is None else torch.where(enter_b, idx, payload)
+        node = torch.where(interior, target, torch.where(go_root, 0, node))
         cp = torch.where(interior[:, None], np_,
                          torch.where(go_root[:, None], 0.0, cp))
         depth = torch.where(interior, depth1, torch.where(go_root, 0, depth))
@@ -338,20 +409,127 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         steps = torch.where(go, steps_new, steps)
 
         keep = interior | go
+        if bt is not None:
+            bm = enter_b
+            if bi.numel():
+                v[bi], nrm[bi], steps[bi] = b["v"], b["nrm"], b["steps"]
+                node[bi], cp[bi], depth[bi] = b["node"], b["cp"], b["depth"]
+                bm[bi] = b["bmode"]
+                keep[bi] = b["alive"]
         ids, p, d, v, nrm, rs, oct_ = (
             x[keep] for x in (ids, p, d, v, nrm, rs, oct_))
-        node, cp, depth, steps, skw = (
-            x[keep] for x in (node, cp, depth, steps, skw))
+        node, cp, depth, steps, skw, bm = (
+            x[keep] for x in (node, cp, depth, steps, skw, bm))
 
+    if bt is not None:  # `_refetch_words` (tracer.py:318): the word at index
+        slot = index.clamp(min=0).long()
+        out_word = torch.where(hit & ~forced, pool[_row_read(pool, slot, slot & 7)], 0)
     return TraceResult(hit, forced, index, hit_pos, normal, out_steps,
                        out_depth, narrow_u32(out_word))
 
 
-def _trace_checks(words, n, dev, warp_table, visits, visit_flags):
+def _brick_substeps(rows, slot, c, db, v, nrm, steps, p, d, rs, strict, max_steps,
+                    brick_k, mark):
+    """JAX ``_brick_substeps`` (tracer.py:832) for the lanes in brick mode:
+    up to ``brick_k`` sub-steps of the DDA over each lane's brick row
+    ``rows`` (int64 [m, 8]) at brick root ``slot``, cell ``c`` and depth
+    ``db``, from position ``v``. Returns the lanes' new state (``v``,
+    ``nrm``, ``steps``, ``node``, ``cp``, ``depth``, ``bmode``, ``alive``)
+    and ``records``: (lane mask, result fields) of the lanes that finished,
+    in order. ``mark(slots)``, if given, marks each sub-step's visits."""
+    w0, occ_lo, occ_hi, cgroup = rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]
+    cgroup = torch.where(cgroup >= 1 << 31, cgroup - (1 << 32), cgroup)  # int32, as JAX
+    h = _pow2(-db)[:, None]
+    q1, q2 = h * 0.5, h * 0.25
+    m = slot.shape[0]
+    inst = torch.ones(m, dtype=torch.bool, device=slot.device)
+    done = torch.zeros_like(inst)
+    desc = torch.zeros_like(inst)
+    par = torch.zeros_like(inst)
+    root = torch.zeros_like(inst)
+    d_idx = torch.zeros_like(slot)
+    d_c = torch.zeros_like(c)
+    code = slot & 7
+    bits = torch.stack([(code >> 2) & 1, (code >> 1) & 1, code & 1], dim=1).to(_F32)
+    pc = c - (bits * 2.0 - 1.0) * h
+    h2 = h * 2.0
+    records = []
+    for _ in range(brick_k):
+        if not bool(inst.any()):
+            break
+        b1 = v > c if strict else v >= c
+        m1 = c + (b1.to(_F32) * 2.0 - 1.0) * q1
+        b2 = v > m1 if strict else v >= m1
+        m2 = m1 + (b2.to(_F32) * 2.0 - 1.0) * q2
+        ccode = b1[:, 0].long() * 4 + b1[:, 1].long() * 2 + b1[:, 2].long()
+        bit = ccode * 8 + b2[:, 0].long() * 4 + b2[:, 1].long() * 2 + b2[:, 2].long()
+        occ = ((torch.where(bit < 32, occ_lo, occ_hi) >> (bit & 31)) & 1) != 0
+        cl = ((w0 >> (ccode + 1)) & 1) != 0
+        tgt = cgroup + ccode
+        if mark is not None:
+            mark(tgt[inst])
+
+        hitc = inst & occ & cl
+        records.append((hitc, dict(hit=True, index=tgt, hit_pos=v, normal=nrm, steps=steps,
+                                   depth=db + 1)))
+        dsc = inst & occ & ~cl
+        desc = desc | dsc
+        d_idx = torch.where(dsc, tgt, d_idx)
+        d_c = torch.where(dsc[:, None], m1, d_c)
+
+        stepping = inst & ~occ
+        ctr = torch.where(cl[:, None], m1, m2)
+        half = torch.where(cl[:, None], q1, q2)
+        t = ((ctr - p) + rs * half) / d
+        tx, ty, tz = t.unbind(1)
+        face = torch.stack([tx <= torch.minimum(ty, tz),
+                            ty <= torch.minimum(tz, tx),
+                            tz <= torch.minimum(tx, ty)], dim=1)
+        nn = face.to(_F32) * -rs
+        t_cur = torch.minimum(torch.minimum(tx, ty), tz)
+        q = (p + d * t_cur[:, None]) - nn * _EPS_NUDGE
+        inb = _in_bounds(q)
+        oob = stepping & ~inb
+        records.append((oob, dict(steps=steps, depth=db + torch.where(cl, 1, 2))))
+        steps_new = steps + 1
+        over = stepping & inb & (steps_new > max_steps)
+        records.append((over, dict(hit=True, forced=True, hit_pos=q, normal=nn,
+                                   steps=steps_new, depth=max_steps)))
+        done = done | hitc | oob | over
+        go = stepping & inb & ~over
+
+        if strict:
+            inc = torch.all((q > c - h) & (q <= c + h), dim=1)
+            inp = torch.all((q > pc - h2) & (q <= pc + h2), dim=1)
+        else:
+            inc = torch.all((q >= c - h) & (q < c + h), dim=1)
+            inp = torch.all((q >= pc - h2) & (q < pc + h2), dim=1)
+        exit_b = go & ~inc
+        par = par | (exit_b & inp)
+        root = root | (exit_b & ~inp)
+        v = torch.where(go[:, None], q, v)
+        nrm = torch.where(go[:, None], nn, nrm)
+        steps = torch.where(go, steps_new, steps)
+        inst = go & inc
+
+    return dict(
+        v=v, nrm=nrm, steps=steps, records=records,
+        node=torch.where(desc, d_idx, torch.where(par, slot & ~7,
+                                                  torch.where(root, 0, slot))),
+        cp=torch.where(desc[:, None], d_c, torch.where(par[:, None], pc,
+                                                       torch.where(root[:, None], 0.0, c))),
+        depth=torch.where(desc, db + 1, torch.where(par, db - 1, torch.where(root, 0, db))),
+        bmode=inst | desc, alive=~done)
+
+
+def _trace_checks(words, n, dev, warp_table, visits, visit_flags, bricks, paged):
     """Checks shared by K1's two wrappers; returns (table_mode, levels,
     visit_mode)."""
     kernels.check(words, "words", _I32, (None,), dev)
     _check_pool(words)
+    _check_modes(words, warp_table, bricks, paged)
+    if bricks is not None and kernels.uses_kernel(dev) and bricks.data_ptr() % 16:
+        raise ValueError("bricks must start on a 16-byte boundary")
     if 3 * n >= 1 << 31:
         raise ValueError(f"{n} rays: K1 indexes rays in int32, so n < 2^31 / 3")
     table_mode, levels = 0, 0
@@ -368,7 +546,8 @@ def _trace_checks(words, n, dev, warp_table, visits, visit_flags):
 
 def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
           strict_descent=True, warp_table=None, visits=None,
-          visit_flags=False, parent_restart=True, max_iters=None) -> TraceResult:
+          visit_flags=False, parent_restart=True, max_iters=None, bricks=None,
+          brick_k=4, paged=None) -> TraceResult:
     """Trace the rays ``dirs`` through the node pool ``words``.
 
     ``dirs`` is f32[N, 3], or an image f32[H, W, 3] of N = H*W rays, which
@@ -384,8 +563,36 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     table has one, else from the root), the only form whose visit counts
     have the reference counter's magnitudes; hits are the same in both
     forms. A ray still active after ``max_iters`` loop trips (by default
-    ``(max_steps + 2) * 26``) stays unresolved. On a CUDA device this
-    launches kernel K1; on the CPU it is ``trace_plain``.
+    ``(max_steps + 2) * 26``) stays unresolved.
+
+    ``bricks``, the int32[pool, 8] table of ``bricks.build_bricks`` (then
+    ``words`` must be the decorated pool from the same call), runs JAX's
+    brick DDA: a ray that descends into a brick root marches its 4x4x4
+    cells by arithmetic, ``brick_k`` sub-steps a loop trip, with results
+    equal to the plain traversal's. A ray's trips then depend on
+    ``brick_k``, so under an explicit ``max_iters`` the rays left
+    unresolved are JAX's. A step out of a brick resumes from the brick
+    root's parent cell, or the root, in either restart form (JAX's
+    ``_brick_substeps`` never reads ``parent_restart``), so the root form
+    with bricks lacks the reference's visit magnitudes. Bricks exclude
+    ``warp_table``, as in JAX.
+
+    ``paged`` = (top_rows, page_rows, n_pages) of a ``paging.build_pages``
+    relayout whose ``words`` this is: results, in relayouted slots, are
+    the unpaged traversal's, as JAX's paged trace's are (its page
+    scheduling only stalls rays, and the relayout keeps the traversal's
+    semantics); the traversal is the plain one, over the relayouted pool,
+    under the unpaged cap, so every ray's result equals the unpaged
+    trace's. JAX's cap counts the wavefront's trips, stalls included, and
+    its default is ``n_pages * 32`` times the unpaged one, so that no ray
+    is cut off by its stalls (tracer.py:203-212); the port, which never
+    stalls a ray, counts each ray's own trips. A ray of a well-formed pool
+    reaches neither default; one that needs more trips than the unpaged
+    cap (a cyclic pool's) stays unresolved here, as in the unpaged trace.
+    ``paged`` excludes ``bricks`` and ``warp_table``, as in JAX.
+
+    On a CUDA device this launches kernel K1; on the CPU it is
+    ``trace_plain``.
     """
     dev = dirs.device
     image = dirs.dim() == 3
@@ -397,12 +604,12 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     if active_init is not None:
         kernels.check(active_init, "active_init", torch.bool, (n,), dev)
     table_mode, levels, visit_mode = _trace_checks(words, n, dev, warp_table, visits,
-                                                   visit_flags)
+                                                   visit_flags, bricks, paged)
     iters = _max_iters(max_steps, max_iters)
     if not kernels.uses_kernel(dev):
         return trace_plain(words, origins, dirs, active_init, max_steps,
                            strict_descent, warp_table, visits, visit_flags,
-                           parent_restart, iters)
+                           parent_restart, iters, bricks, brick_k)
 
     res = TraceResult(
         hit=torch.empty(n, dtype=torch.bool, device=dev),
@@ -421,14 +628,20 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.ptr(active_init), n, width,
         kernels.ptr(warp_table), table_mode, levels, int(strict_descent),
         int(not parent_restart), max_steps, iters, *[kernels.ptr(f) for f in res],
-        kernels.ptr(visits), visit_mode,
+        kernels.ptr(visits), visit_mode, kernels.ptr(bricks), _brick_k(brick_k),
     )
     return res
 
 
+def _brick_k(brick_k) -> int:
+    """``brick_k`` as the kernel's int: at most 2^31 - 1 sub-steps a trip (a
+    count below 1 takes none, as JAX's ``range``)."""
+    return max(min(int(brick_k), (1 << 31) - 1), 0)
+
+
 def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
                  warp_table=None, visits=None, max_steps=MAX_STEPS,
-                 strict_descent=True, parent_restart=True, *,
+                 strict_descent=True, parent_restart=True, bricks=None, brick_k=4, *,
                  image_width: int) -> torch.Tensor:
     """bool[N]: whether each shadow ray of ``result`` (``shadow_rays``'s,
     from ``hit_pos + normal * 2.5e-6`` toward ``-normalize(sun_dir)``, active
@@ -436,8 +649,9 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
     ``visits`` (int32[pool]) gets the shadow rays' exact counts added.
     ``image_width`` is the width of the image whose pixels ``result`` holds
     in order, which the kernel takes in 8x4 tiles as ``trace`` takes an
-    image's dirs, or 0 for a batch in linear order. ``parent_restart`` is
-    ``trace``'s. On a CUDA device this launches kernel K1 in its shadow
+    image's dirs, or 0 for a batch in linear order. ``parent_restart``,
+    ``bricks`` and ``brick_k`` are ``trace``'s. On a CUDA device this
+    launches kernel K1 in its shadow
     mode, which builds each ray from the result in its prologue and writes
     only ``hit``; on the CPU it is ``shadow_rays`` and ``trace_plain``."""
     dev = words.device
@@ -451,11 +665,13 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
         raise ValueError(f"sun_dir must be three finite numbers, not all 0: {sun_dir}")
     if image_width < 0 or (image_width and n % image_width):
         raise ValueError(f"image_width {image_width} does not divide {n} rays")
-    table_mode, levels, _ = _trace_checks(words, n, dev, warp_table, visits, False)
+    table_mode, levels, _ = _trace_checks(words, n, dev, warp_table, visits, False,
+                                          bricks, None)
     if not kernels.uses_kernel(dev):
         o, d, active = shadow_rays(result, sun_dir, cull)
         return trace_plain(words, o, d, active, max_steps, strict_descent, warp_table,
-                           visits, parent_restart=parent_restart).hit
+                           visits, parent_restart=parent_restart, bricks=bricks,
+                           brick_k=brick_k).hit
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     kernels.launch(
         "trace", "ot_trace_shadow", dev,
@@ -464,6 +680,7 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
         *(float(c) for c in neg_sun), int(cull), n, image_width, kernels.ptr(warp_table),
         table_mode, levels, int(strict_descent), int(not parent_restart), max_steps,
         _max_iters(max_steps, None), kernels.ptr(hit), kernels.ptr(visits),
+        kernels.ptr(bricks), _brick_k(brick_k),
     )
     return hit
 
@@ -825,7 +1042,8 @@ def overlay_hit_counts(visits: torch.Tensor, result: TraceResult) -> torch.Tenso
 def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
                  show_steps=False, misc_bool=False, max_steps=MAX_STEPS,
                  warp_table=None, u8_image=False, with_visits=False,
-                 show_hits=False, visit_flags=False, parent_restart=True):
+                 show_hits=False, visit_flags=False, parent_restart=True, bricks=None,
+                 brick_k=4, paged=None, paged_old_of_new=None):
     """Full frame: primary trace, shadow trace, shade (and u8 encode).
 
     ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
@@ -846,7 +1064,17 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     counts and no shadows, and shows ``min(visits, 15) / 15`` on hits.
     ``parent_restart`` goes to both passes (``trace``'s): False gives the
     reference's full re-descent and its visit magnitudes.
+
+    ``bricks`` and ``brick_k`` go to both passes (``trace``'s; ``words``
+    the decorated pool). ``paged`` is the geometry of a relayouted pool
+    ``words`` (``trace``'s); with ``paged_old_of_new`` (a
+    ``PagedPool.old_of_new``, on the pool's device or on the host) the
+    result's ``index`` is mapped back to original slots, as JAX's
+    (tracer.py:3531-3539). ``paged`` excludes ``with_visits`` and
+    ``show_hits``, as in JAX.
     """
+    if paged is not None and (with_visits or show_hits):
+        raise ValueError("paged excludes with_visits/show_hits")
     if show_hits:
         shadows, with_visits, visit_flags = False, True, False
     h, w = dirs.shape[:2]
@@ -859,7 +1087,8 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
     result = trace(words, origins, dirs.contiguous(), max_steps=max_steps,
                    strict_descent=strict, warp_table=warp_table, visits=visits,
-                   visit_flags=visit_flags, parent_restart=parent_restart)
+                   visit_flags=visit_flags, parent_restart=parent_restart,
+                   bricks=bricks, brick_k=brick_k, paged=paged)
     if with_visits and visit_flags:
         visits = overlay_hit_counts(visits, result)
     shadow_hit = None
@@ -867,7 +1096,14 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
         shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits,
                                   warp_table=warp_table, visits=visits,
                                   max_steps=max_steps, strict_descent=strict,
-                                  parent_restart=parent_restart, image_width=w)
+                                  parent_restart=parent_restart, bricks=bricks,
+                                  brick_k=brick_k, image_width=w)
+    if paged is not None and paged_old_of_new is not None:
+        # Hit slots back to the original pool's (the rest of the result is
+        # slot-independent).
+        old = torch.as_tensor(paged_old_of_new, device=words.device)
+        slot = old[result.index.clamp(0, old.shape[0] - 1).long()].to(_I32)
+        result = result._replace(index=torch.where(result.index >= 0, slot, result.index))
     img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
                 sun_dir=sun_dir, gamma=gamma, u8=u8_image,
                 hits_visits=visits if show_hits else None)

@@ -43,8 +43,6 @@ _TPU_LAYOUT = "TPU scheduling, held bit-identical to plain trace by its own cont
 
 # Modules of the JAX package the port has no counterpart of.
 MODULES_OUT = {
-    "render.bricks": "brick-packed pool rows: " + _TPU_LAYOUT,
-    "render.paging": "paged pools: " + _TPU_LAYOUT,
     "native.libotcore": "the JAX package's build of the host engine (a shared library, "
                         "not Python); the port builds its own copy (native.py)",
 }
@@ -62,7 +60,7 @@ NAMES_OUT = {
     ("render.tracer", "fast_ranks"): "TPU compaction ranks",
     ("render.tracer", "fast_nonzero"): "TPU compaction ranks",
 }
-_LAYOUT_KW = {"start", "unroll", "fuse_sibling", "bricks", "brick_k", "paged"}
+_LAYOUT_KW = {"start", "unroll", "fuse_sibling"}
 # (module, function) -> parameters left out: the TPU layout keywords, and the
 # port's own forms of the same arguments (the value says which).
 PARAMS_OUT = {
@@ -73,8 +71,7 @@ PARAMS_OUT = {
         warp_levels="read from the table's length (tracer.warp_table_levels)"),
     ("render.tracer", "render_frame"): {k: _TPU_LAYOUT for k in (
         "tile_size", "beams", "mode", "beam_iters", "raw_result", "warp_levels",
-        "warp_in_body", "fit_stages", "pre_permuted", "shadow_seed", "pack_pool",
-        "bricks", "brick_k", "paged", "paged_old_of_new")},
+        "warp_in_body", "fit_stages", "pre_permuted", "shadow_seed", "pack_pool")},
     ("render.tracer", "shade"): {
         "words": "the port's shade reads the hit words from the result",
         "show_hits_visits": "the port's hits_visits"},
