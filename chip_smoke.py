@@ -24,8 +24,13 @@ against the NumPy oracle on a subsample, and drives the main paths:
   re-descent) on the deep10 1080p primaries without a table and with the
   combined table: counts, flags and shadow counts equal to its plain
   version, every field equal to the parent form's, both forms timed alone
-  in turn, and the counted frame in that form through ``render_frame``
-  (its launches in the kernels line as ``root_restart.frame_launches``);
+  in turn, each pass's byte bound (the counting pass's with the marked
+  slots), its latency bound (the longest ray's trips times K1's trip on
+  L2-resident rows, ``trip_latency_ns``) and the visit atomics a counted
+  pass issues (an instrumented copy of the kernel,
+  ``probes/k1_counters.py``), and the counted frame in that form through
+  ``render_frame`` (its launches in the kernels line as
+  ``root_restart.frame_launches``);
   phase 4 also runs the malformed pools in both forms, and phase 2 checks
   that every K1 instantiation of both forms keeps 48 registers or fewer
   (the brick forms 64) and that no kernel spills;
@@ -37,7 +42,12 @@ against the NumPy oracle on a subsample, and drives the main paths:
   no-table form without bricks on every field, also on random trees, a
   dense slab at max_steps 6 and the malformed pools; the primary pass,
   the shadow mode and the shadowed u8 frame with bricks timed in turn
-  against the no-table form and the combined table; the slice's path
+  against the no-table form and the combined table, the warps' split
+  between brick trips and descents (``k1_counters``) and the latency
+  bounds; the same on the generated island terrain (``scenes.terrain(9)``,
+  the scene bricks are for) from its grazing camera at 1920x1080, the
+  brick forms equal to plain on the image rows ``TERRAIN_ROWS`` and to the
+  no-table form over the whole frame; the slice's path
   (``build_bricks``, raygen, ``render_frame(bricks=...)``) counted; and
   ``build_pages`` of deep10 with the paged frame equal to the unpaged
   one after the remap, K1 over the relayout timed against the original;
@@ -145,6 +155,9 @@ FRAME_KERNELS = ("trace", "warp_occupancy", "raygen", "shade_encode")
 SESSION_KERNELS = FRAME_KERNELS + ("select_candidates", "propagate_visits")
 # Procedural generation: the production chunk (bench.py:333-337) and the
 # CLI's default world (app/cli.py:240-241), then a Session over it.
+# Phase 9c's terrain (scenes.terrain, K7's 512^3 grid) and the image rows
+# held to the plain version (around the horizon, where rays graze).
+TERRAIN_DEPTH, TERRAIN_ROWS = 9, (432, 560)
 GEN_DEPTH, WORLD_DEPTH = 9, 1
 GEN_CORNER = (-1.0, -1.0, -1.0)
 GEN_CORNERS = (GEN_CORNER, (0.0, -1.0, 0.0))
@@ -182,6 +195,12 @@ KERNELS = {
     "brick_rows": ("octree_tracer_tpu_torch/csrc/brick_rows.cu",
                    "octree_tracer_tpu/render/bricks.py:110"),
 }
+
+
+# What phases 9b and 9c share: K1's registers by form (phase 2), the
+# instrumented counters' build and library (probes/k1_counters.py), and K1's
+# trip time on L2-resident rows (``trip_latency_ns``).
+K1: dict = {"registers": {}}
 
 
 def phase(name: str, msg: str) -> None:
@@ -377,11 +396,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    return run(torch.device("cuda", 0))
+    try:
+        return run(torch.device("cuda", 0))
+    finally:
+        # The counters' nvcc (phase 2) if a phase failed before 9b, and its
+        # directory.
+        if "counters_build" in K1 and K1["counters_build"][0].poll() is None:
+            K1["counters_build"][0].kill()
+            K1["counters_build"][0].wait()
+        if "counters_dir" in K1:
+            shutil.rmtree(K1["counters_dir"], ignore_errors=True)
 
 
 def run(dev: torch.device) -> int:
     from octree_tracer_tpu_torch import kernels, scenes, state
+    from octree_tracer_tpu_torch.probes import k1_counters
     from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
     from octree_tracer_tpu_torch.render import camera, cpu_reference, skip, tracer
 
@@ -412,8 +441,13 @@ def run(dev: torch.device) -> int:
             # the brick forms (4 blocks, 64) to 48.
             check(m[2] == "1" or regs <= 48, f"{name}: {regs} registers")
             k1_forms[m.groups()] = k1_forms.get(m.groups(), 0) + 1
+            K1["registers"][name] = regs
     want = {("0", "0"): 30, ("1", "0"): 30, ("0", "1"): 10, ("1", "1"): 10}
     check(k1_forms == want, f"K1 instantiations (root, bricks): {k1_forms}, expected {want}")
+    # K1's counters (probes/k1_counters.py), built beside the next phases
+    # for 9b and 9c: an instrumented copy of trace.cu in its own library.
+    K1["counters_dir"] = tempfile.mkdtemp(prefix="ot_k1_counters_")
+    K1["counters_build"] = k1_counters.start_build(REPO, K1["counters_dir"])
 
     # 3. The deep10 scene on the card.
     t0 = time.perf_counter()
@@ -544,8 +578,7 @@ def run(dev: torch.device) -> int:
     sh_trips_v = torch.zeros_like(trips_v)
     tracer.trace_shadow(words, res_k, warp_table=table, visits=sh_trips_v, image_width=W)
     trips, sh_trips = int(trips_v.sum()), int(sh_trips_v.sum())
-    rows, sh_rows = (int(torch.unique(torch.nonzero(v).flatten() >> 3).numel())
-                     for v in (trips_v, sh_trips_v))
+    rows, sh_rows = tracer.touched_rows(trips_v), tracer.touched_rows(sh_trips_v)
     prim_hits = int(res_k.hit.sum())
     sh_active = int(tracer.shadow_rays(res_k)[2].sum())
     report["trace"].update(
@@ -557,7 +590,7 @@ def run(dev: torch.device) -> int:
         # (a trip that reads a row again finds it in L2; the table's reads
         # are not counted), the one origin, each ray's direction in and 42
         # bytes of results out.
-        trips=trips, rows=rows, **bound(rows * 32 + 12 + n * 54),
+        trips=trips, rows=rows, **bound(tracer.k1_bytes(rows, n)),
         linear_ms=cuda_ms(lambda: tracer.trace(words, origins_c, flat, warp_table=table),
                           TIMED),
         # The shadow mode: the rows its rays touch, each ray's primary hit in
@@ -566,7 +599,8 @@ def run(dev: torch.device) -> int:
         shadow_ms=cuda_ms(lambda: tracer.trace_shadow(words, res_k, warp_table=table,
                                                       image_width=W), TIMED),
         shadow_plain_ms=sh_plain_s * 1e3, shadow_trips=sh_trips, shadow_rows=sh_rows,
-        shadow_bound_ms=bound(sh_rows * 32 + n * 2 + (prim_hits + sh_active) * 12)["bound_ms"],
+        shadow_bound_ms=bound(tracer.k1_shadow_bytes(sh_rows, n, prim_hits + sh_active))[
+            "bound_ms"],
     )
     sample = np.sort(np.random.default_rng(0).choice(n, ORACLE_RAYS, replace=False))
     res_0 = tracer.to_numpy(tracer.trace(words, origins, flat))
@@ -1016,11 +1050,28 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
               f"form's")
         max_count = int((counts + sh_k).max())
         check(max_count <= count_cap, f"a slot counted {max_count} > {count_cap}")
-        rows = int(torch.unique(torch.nonzero(counts).flatten() >> 3).numel())
+        rows = tracer.touched_rows(counts)
         times = time_in_turn({
             "root": lambda: tracer.trace(words, origins, dirs, **kw),
             "parent": lambda: tracer.trace(words, origins, dirs, warp_table=t)}, 5, 10)
         buf = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        # The latency bound (the longest ray's trips), and the visit atomics
+        # a counted pass issues (the instrumented copy), against the parent
+        # form's on the same rays.
+        lat = latency_bound(lambda c: tracer.trace(words, origins, dirs, max_iters=c, **kw),
+                            r_k)
+        atomics = {}
+        with counters() as c:
+            for form, call in (
+                    ("root", lambda: tracer.trace(words, origins, dirs, visits=buf, **kw)),
+                    ("parent", lambda: tracer.trace(words, origins, dirs, visits=buf,
+                                                    warp_table=t)),
+                    ("shadow", lambda: tracer.trace_shadow(words, r_k, cull=False, visits=buf,
+                                                           image_width=W, **kw))):
+                buf.zero_()
+                call()
+                atomics[form] = c.read()["atomics"]
+        marked = int((counts > 0).sum())
         entry[what] = dict(
             max_abs_err=max(errs), visits_exact=all(exact),
             alone_ms=times["root"]["median"], alone_range=times["root"]["range"],
@@ -1037,10 +1088,14 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
                 words, r_k, cull=False, visits=buf, image_width=W, **kw), TIMED),
             plain_ms=plain_s["counts"] * 1e3, shadow_plain_ms=plain_s["shadow"] * 1e3,
             trips=int(counts.sum()), shadow_trips=int(sh_k.sum()), rows=rows,
-            max_slot_count=max_count, library_ms=None,
+            max_slot_count=max_count, library_ms=None, marked_slots=marked,
+            atomics=atomics["root"], parent_atomics=atomics["parent"],
+            shadow_atomics=atomics["shadow"],
+            # The counting pass's bytes add each marked slot read and written.
+            counts_bound_ms=bound(tracer.k1_bytes(rows, n, marked))["bound_ms"], **lat,
             # As phase 6's primary: every pool row the root form's rays touch,
             # the origin, each direction in and 42 bytes of results out.
-            **bound(rows * 32 + 12 + n * 54))
+            **bound(tracer.k1_bytes(rows, n)))
         e = entry[what]
         phase("9b K1 root restart", f"{card}: deep{DEPTH} {W}x{H}, {what} table: counts, "
               f"flags and shadow counts equal to plain on every field and all {n_words} "
@@ -1051,8 +1106,12 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
               f"ms {e['parent_alone_range']} (in turn); root wrapper {e['ms']:.4f}, counts "
               f"{e['counts_ms']:.4f}, flags {e['flags_ms']:.4f}, shadow alone "
               f"{e['shadow_ms']:.4f}, shadow counts {e['shadow_counts_ms']:.4f} ms; bound "
-              f"{e['bound_ms']:.4f} ms; plain counts {e['plain_ms']:.0f} ms, shadow counts "
-              f"{e['shadow_plain_ms']:.0f} ms")
+              f"{e['bound_ms']:.4f} ms, counting {e['counts_bound_ms']:.4f} ms ({marked} "
+              f"slots marked), latency {e['latency_bound_ms']:.4f} ms (longest ray "
+              f"{e['longest_trips']} trips x {e['trip_ns']:.1f} ns); visit atomics a counted "
+              f"pass {atomics['root']} (parent form {atomics['parent']}, shadow counts "
+              f"{atomics['shadow']}) for {e['trips']} marks; plain counts "
+              f"{e['plain_ms']:.0f} ms, shadow counts {e['shadow_plain_ms']:.0f} ms")
         if t is not None:
             frame_visits = counts + sh_k
 
@@ -1073,11 +1132,14 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     frame_ms = cuda_ms(lambda: tracer.render_frame(
         words, origins[0], dirs, warp_table=table, u8_image=True, with_visits=True,
         parent_restart=False), TIMED, WARMUP)
+    regs = {k: v for k, v in K1["registers"].items()
+            if "root=1" in k and "visits=0" not in k}
     report["trace"]["root_restart"] = dict(entry, frame_launches=launches["trace"],
-                                           counted_frame_ms=frame_ms)
+                                           counted_frame_ms=frame_ms, registers=regs)
     phase("9b K1 root restart", f"{card}: counted frame (combined L{LEVELS}, shadows, u8) "
           f"in the root form {frame_ms:.3f} ms, image equal to the parent form's, visits "
-          f"equal to its two passes' counts; launches {launches}")
+          f"equal to its two passes' counts; launches {launches}; registers of the root "
+          f"form's counting and flag forms: {regs}")
 
 
 def loop_trips(trace_capped, full) -> tuple[int, int]:
@@ -1096,6 +1158,48 @@ def loop_trips(trace_capped, full) -> tuple[int, int]:
         if cap % 16 == 15 and not bool(left.any()):
             return int(total), cap
         cap += 1
+
+
+def trip_latency_ns(dev) -> float:
+    """K1's trip on L2-resident rows, in ns: one ray down
+    ``scenes.chain_pool``'s cycle of 2^20 groups (32 MiB, inside the 50 MB
+    L2; no row read twice within 2^20 trips), traced with max_iters 16384
+    and 8192, each the kernel alone behind a spin; the difference over 8192
+    trips. Each trip is one dependent row load and the trip's arithmetic."""
+    from octree_tracer_tpu_torch import scenes, state
+    from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
+    from octree_tracer_tpu_torch.render import tracer
+
+    if "trip_ns" not in K1:
+        chain = state.u32_to_device(scenes.chain_pool(1 << 20), dev)
+        o = torch.tensor([[0.1, 0.2, 0.3]], device=dev)
+        d = torch.tensor([[0.3, 0.5, 0.8]], device=dev)
+        ms = {t: device_ms(lambda t=t: tracer.trace(chain, o, d, max_iters=t), 5)
+              for t in (8192, 16384)}
+        K1["trip_ns"] = (ms[16384] - ms[8192]) / 8192 * 1e6
+    return K1["trip_ns"]
+
+
+def latency_bound(trace_capped, full) -> dict:
+    """The latency bound of a pass: the loop trips of its longest ray
+    (``tracer.longest_trips`` over the rays ``full`` resolves) times K1's
+    trip on L2-resident rows."""
+    from octree_tracer_tpu_torch.render import tracer
+
+    longest = tracer.longest_trips(trace_capped, full.depth > 0,
+                                   tracer._max_iters(tracer.MAX_STEPS, None))
+    return {"longest_trips": longest, "trip_ns": trip_latency_ns(full.depth.device),
+            "latency_bound_ms": longest * trip_latency_ns(full.depth.device) * 1e-6}
+
+
+def counters():
+    """K1's counting library (``k1_counters.Counting``), its build waited
+    for once."""
+    from octree_tracer_tpu_torch.probes import k1_counters
+
+    if "counters" not in K1:
+        K1["counters"] = k1_counters.Counting(k1_counters.finish_build(*K1["counters_build"]))
+    return K1["counters"]
 
 
 def brick_trace_rows(dec, visits) -> tuple[int, int]:
@@ -1192,6 +1296,120 @@ def brick_scenes(dev) -> str:
             f"brick_k 1 and 4 ({out} hits), a dense slab at max_steps 6 ({forced} forced, "
             f"{left} out of the cube) and the malformed pools from 3 points, both forms "
             f"({mal} hits)")
+
+
+def terrain_bricks(dev, card) -> dict:
+    """Phase 9c on the generated island terrain (``scenes.terrain(9)``, a
+    512^3 chunk spanning the root cube, the scene bricks are for) from its
+    grazing camera at 1920x1080: K1's brick forms (brick_k 4) equal to their
+    plain version on the image rows ``TERRAIN_ROWS`` around the horizon
+    (every field, the shadow mask and every visit slot, counts and flags,
+    both restart forms; the plain version of the whole frame takes
+    minutes), and to the no-table form on every field and the culled shadow
+    mask over the whole frame; the primary pass and the shadow mode timed
+    in turn against the no-table form and the combined table; loop trips,
+    the warps' split, the rows read and the latency bounds."""
+    from octree_tracer_tpu_torch import scenes, state
+    from octree_tracer_tpu_torch.probes.gather_probe import time_in_turn
+    from octree_tracer_tpu_torch.render import bricks, camera, skip, tracer
+
+    t0 = time.perf_counter()
+    words = state.u32_to_device(scenes.terrain(TERRAIN_DEPTH, dev), dev)
+    gen_s = time.perf_counter() - t0
+    n_words, n = words.shape[0], W * H
+    pos, look, fov = scenes.TERRAIN_CAMERA
+    origin, dirs = camera.generate_rays_device(camera.camera_matrices(pos, look, fov, W, H)[1],
+                                               W, H, dev)
+    origins = origin.expand(n, 3)
+    dec, br = bricks.build_bricks(words)
+    table = skip.build_warp_skip_table(words, LEVELS)
+    base = tracer.trace(words, origins, dirs)
+
+    # The row block: kernel against plain, both restart forms.
+    r0, r1 = TERRAIN_ROWS
+    b_dirs = dirs[r0:r1].contiguous()
+    b_orig = origin.expand(b_dirs.shape[0] * W, 3)
+    errs, marks = [], {}
+    for restart in (True, False):
+        form = "parent" if restart else "root"
+        kw = dict(bricks=br, brick_k=4, parent_restart=restart)
+        v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        r_p = tracer.trace_plain(dec, b_orig, b_dirs.reshape(-1, 3), visits=v_p, **kw)
+        for flags, want in ((False, v_p), (True, (v_p > 0).int())):
+            v_k = torch.zeros_like(v_p)
+            r_k = tracer.trace(dec, b_orig, b_dirs, visits=v_k, visit_flags=flags, **kw)
+            differ = [f for f, a, b in zip(r_k._fields, r_k, r_p) if not torch.equal(a, b)]
+            check(not differ, f"terrain bricks, {form} form: {differ} differ from plain")
+            check(torch.equal(v_k, want), f"terrain bricks, {form} form, flags {flags}: "
+                  f"visits differ from plain on {int((v_k != want).sum())} slots")
+            errs.append(max_abs_err(zip(r_k, r_p)))
+        sh_k, sh_p = torch.zeros_like(v_p), torch.zeros_like(v_p)
+        hit_k = tracer.trace_shadow(dec, r_k, cull=False, visits=sh_k, image_width=W, **kw)
+        hit_p = tracer.trace_plain(dec, *tracer.shadow_rays(r_k, cull=False), visits=sh_p,
+                                   **kw).hit
+        check(torch.equal(hit_k, hit_p) and torch.equal(sh_k, sh_p),
+              f"terrain bricks, {form} form: the shadow mode differs from plain")
+        marks[form] = int(v_p.sum())
+
+    # The whole frame against the no-table form, and timed in turn.
+    res_b = tracer.trace(dec, origins, dirs, bricks=br)
+    check(all(torch.equal(a, b) for a, b in zip(res_b, base)),
+          "terrain bricks: a field differs from the no-table form")
+    check(torch.equal(tracer.trace_shadow(dec, res_b, bricks=br, image_width=W),
+                      tracer.trace_shadow(words, base, image_width=W)),
+          "terrain bricks: the culled shadow mask differs from the no-table form's")
+    res_c = tracer.trace(words, origins, dirs, warp_table=table)
+    prim = time_in_turn({
+        "bricks": lambda: tracer.trace(dec, origins, dirs, bricks=br),
+        "bricks_k1": lambda: tracer.trace(dec, origins, dirs, bricks=br, brick_k=1),
+        "bricks_k8": lambda: tracer.trace(dec, origins, dirs, bricks=br, brick_k=8),
+        "no_table": lambda: tracer.trace(words, origins, dirs),
+        "combined": lambda: tracer.trace(words, origins, dirs, warp_table=table)}, 5, 10)
+    shadow = time_in_turn({
+        "bricks": lambda: tracer.trace_shadow(dec, res_b, bricks=br, image_width=W),
+        "no_table": lambda: tracer.trace_shadow(words, base, image_width=W),
+        "combined": lambda: tracer.trace_shadow(words, res_c, warp_table=table,
+                                                image_width=W)}, 5, 10)
+    trips = {
+        "bricks": loop_trips(lambda c: tracer.trace(dec, origins, dirs, bricks=br,
+                                                    max_iters=c), res_b),
+        "no_table": loop_trips(lambda c: tracer.trace(words, origins, dirs, max_iters=c), base)}
+    with counters() as c:
+        tracer.trace(dec, origins, dirs, bricks=br)
+        split = c.read()
+    v_b = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    tracer.trace(dec, origins, dirs, bricks=br, visits=v_b)
+    pool_rows, brick_rows = brick_trace_rows(dec, v_b)
+    v_n = torch.zeros_like(v_b)
+    tracer.trace(words, origins, dirs, visits=v_n)
+    lat = latency_bound(lambda c: tracer.trace(dec, origins, dirs, bricks=br, max_iters=c),
+                        res_b)
+    nt_lat = latency_bound(lambda c: tracer.trace(words, origins, dirs, max_iters=c), base)
+    out = dict(
+        words=n_words, build_s=gen_s, hits=int(base.hit.sum()), forced=int(base.forced.sum()),
+        brick_roots=int((dec & 1).sum()), rows_checked=[r0, r1], max_abs_err=max(errs),
+        block_marks=marks, primary_ms={k: v["median"] for k, v in prim.items()},
+        primary_range={k: v["range"] for k, v in prim.items()},
+        shadow_ms={k: v["median"] for k, v in shadow.items()},
+        loop_trips={k: {"total": v[0], "longest_at_most": v[1]} for k, v in trips.items()},
+        split=split, split_share=split["split_warp_trips"] / max(split["warp_trips"], 1),
+        pool_rows=pool_rows, brick_rows=brick_rows, no_table_rows=tracer.touched_rows(v_n),
+        bound_ms=bound(tracer.k1_bytes(pool_rows + brick_rows, n))["bound_ms"],
+        no_table_bound_ms=bound(tracer.k1_bytes(tracer.touched_rows(v_n), n))["bound_ms"],
+        no_table_latency_bound_ms=nt_lat["latency_bound_ms"], **lat)
+    phase("9c K1 terrain", f"{card}: terrain chunk_depth {TERRAIN_DEPTH} ({n_words} words, "
+          f"{out['brick_roots']} brick roots, built in {gen_s:.1f} s) {W}x{H} from the grazing "
+          f"camera: rows {r0}-{r1} equal to plain (every field, the shadow mask, every slot, "
+          f"counts and flags, both restart forms; marks {marks}); the whole frame equal to "
+          f"the no-table form ({out['hits']} hits, {out['forced']} forced); in turn, median "
+          f"ms: primary {out['primary_ms']}, shadow mode {out['shadow_ms']}; loop trips "
+          f"{out['loop_trips']}; warp-trips {split['warp_trips']}, {out['split_share']:.4f} "
+          f"split, lane-trips brick {split['brick_lane_trips']} / descent "
+          f"{split['descent_lane_trips']}; rows read {pool_rows} pool + {brick_rows} brick "
+          f"(no table {out['no_table_rows']}); bound {out['bound_ms']:.4f} ms (no table "
+          f"{out['no_table_bound_ms']:.4f}), latency {out['latency_bound_ms']:.4f} ms "
+          f"({out['longest_trips']} trips; no table {out['no_table_latency_bound_ms']:.4f})")
+    return out
 
 
 def bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k, ci,
@@ -1309,7 +1527,7 @@ def bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k
     # Times in turn: bricks against the no-table form and the combined table.
     nt_v = torch.zeros(n_words, dtype=torch.int32, device=dev)
     tracer.trace(words, origins, dirs, visits=nt_v)
-    nt_rows = int(torch.unique(torch.nonzero(nt_v).flatten() >> 3).numel())
+    nt_rows = tracer.touched_rows(nt_v)
     res_b = tracer.trace(dec, origins, dirs, bricks=br)
     prim = time_in_turn({
         "bricks": lambda: tracer.trace(dec, origins, dirs, bricks=br),
@@ -1341,6 +1559,16 @@ def bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k
         "combined": loop_trips(lambda c: tracer.trace(words, origins, dirs, warp_table=table,
                                                       max_iters=c), res_k)}
 
+    # The warps' split between brick trips and descents and each mode's
+    # lane-trips (the instrumented copy), and the latency bounds.
+    with counters() as c:
+        tracer.trace(dec, origins, dirs, bricks=br)
+        split = c.read()
+    lat = latency_bound(lambda cap: tracer.trace(dec, origins, dirs, bricks=br, max_iters=cap),
+                        res_b)
+    nt_lat = latency_bound(lambda cap: tracer.trace(words, origins, dirs, max_iters=cap), base)
+    terrain = terrain_bricks(dev, card)
+
     # The slice's path once, counted: the brick build, raygen, the frame.
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1361,21 +1589,27 @@ def bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k
         primary_range=prim["bricks"]["range"], no_table_trips=int(nt_v.sum()),
         loop_trips={k: {"total": v[0], "per_ray": v[0] / int((base.depth > 0).sum()),
                         "longest_at_most": v[1]} for k, v in trips.items()},
-        no_table_rows=nt_rows, library_ms=None,
+        no_table_rows=nt_rows, library_ms=None, split=split,
+        split_share=split["split_warp_trips"] / max(split["warp_trips"], 1),
+        no_table_latency_bound_ms=nt_lat["latency_bound_ms"], terrain=terrain, **lat,
         # Each byte the primary pass must move, once: the pool rows and the
         # brick rows (a 32-byte sector each) its trips read, the origin, each
         # direction in and 42 bytes of results out; beside it the no-table
         # form's, from its visits.
-        **bound((e["pool_rows"] + e["brick_rows"]) * 32 + 12 + n * 54),
-        no_table_bound_ms=bound(nt_rows * 32 + 12 + n * 54)["bound_ms"])
+        **bound(tracer.k1_bytes(e["pool_rows"] + e["brick_rows"], n)),
+        no_table_bound_ms=bound(tracer.k1_bytes(nt_rows, n))["bound_ms"])
     t = report["trace"]["bricks"]
     phase("9c K1 bricks", f"{card}: in turn, median ms: primary alone {med['primary']}; "
           f"shadow mode alone {med['shadow']}; shadowed u8 frame {med['frame']}; primary "
           f"marks: bricks {e['marks']}, no table {t['no_table_trips']}; loop trips (total, "
           f"a ray, the longest ray's within 16): {t['loop_trips']}; bound "
-          f"{t['bound_ms']:.4f} ms (no table {t['no_table_bound_ms']:.4f}); the slice's path "
-          f"(build_bricks, raygen, frame) launches {launches}, image and fields equal to the "
-          f"no-table frame")
+          f"{t['bound_ms']:.4f} ms (no table {t['no_table_bound_ms']:.4f}), latency "
+          f"{t['latency_bound_ms']:.4f} ms (longest ray {t['longest_trips']} trips; no table "
+          f"{t['no_table_latency_bound_ms']:.4f}); warp-trips {split['warp_trips']}, "
+          f"{t['split_share']:.4f} split between brick trips and descents, lane-trips "
+          f"brick {split['brick_lane_trips']} / descent {split['descent_lane_trips']}; the "
+          f"slice's path (build_bricks, raygen, frame) launches {launches}, image and fields "
+          f"equal to the no-table frame")
 
     # Paged pools: the relayout on the host, the frame through it.
     t0 = time.perf_counter()

@@ -33,7 +33,14 @@
 // the leaf word: `word` is read at `index` after the loop, for hits that are
 // not forced (tracer.py:318-340). As JAX reads one table of pool rows and then
 // brick rows, a node row past the pool's end reads a brick row (the last one
-// at most), and a brick row past the table's end the last one.
+// at most), and a brick row past the table's end the last one. Each lane's
+// load of a trip, the brick row's first 16 bytes or the descent's word, is
+// issued at the top of the trip, before the lanes part into the two bodies,
+// so a warp whose lanes split waits on one load latency. One 16-byte load
+// for both modes (JAX's one row a trip, a descent lane taking the half of
+// its row that holds its word) measured 8-20% slower (PERF.md §6). A split
+// warp still runs both bodies in turn, and a brick trip's sub-steps, each
+// with three IEEE divisions, are the longer of the two.
 //
 // What bounds it on the H100: every trip is one dependent 4-byte load from
 // the pool (the child word of the 32-byte group row), and every boundary step
@@ -75,6 +82,14 @@
 // atomic instead of 32. Counting is a template parameter, so frames that do
 // not count keep the unmarked kernel's registers. A brick sub-step marks
 // children group + ccode (tracer.py:943-948), dropped past the pool's end.
+// The root form's counting and flag forms re-descend from the root after
+// every step: on the deep10 1080p primaries 9.3M marks at each of depths
+// 0, 1 and 2, on 8, 64 and 512 slots, whose atomics queue on a few L2
+// addresses (4.2x the unmarked pass). A block adds those up in shared
+// memory and each entry to the array once (`top_mark`); every other mark
+// stays warp-aggregated. A per-lane cache of the last slot at each depth
+// measured slower: its flushes come apart across a warp's lanes (PERF.md
+// §6).
 #include <climits>
 
 #include "common.cuh"
@@ -194,11 +209,55 @@ __device__ __forceinline__ void mark(int32_t* visits, int32_t slot, int32_t n_wo
   }
 }
 
+// The root form's counting and flag forms: every re-descent from the root
+// marks a slot at depths 0, 1 and 2, so these few slots take most of the
+// frame's marks. Each block adds them up in shared memory instead, in
+// entries named by the descent's path (its children at depths 0-2: 8 + 64
+// + 512 entries), and adds each entry to the array once, at its end. The
+// path names the slot (slot = node + child, the node read from the pool
+// along the same path), so every lane that marks an entry marks one slot.
+// The forms that use them: the root form's counting and flag forms, but
+// for the shadow mode with a table, whose rays start in cells the table
+// holds and so almost never re-descend from the root (14 marks at depth 0
+// of 11M on deep10; PERF.md §6).
+constexpr int kTopEntries = 8 + 64 + 512;
+
+template <int TABLE, int VISITS, bool SHADOW, bool ROOT>
+constexpr bool kTopMarks = ROOT && VISITS != 0 && (TABLE == 0 || !SHADOW);
+
+struct TopMarks {
+  int32_t* count;  // [kTopEntries] marks (counts) or 0/1 (flags)
+  int32_t* slot;   // [kTopEntries] the entry's slot
+};
+
+// A mark at depth < 3 of a descent from the root with path `path` (the
+// children at the depths above, c0 * 8 + c1), warp-aggregated as `mark`;
+// dropped past the pool's end.
+template <int VISITS>
+__device__ __forceinline__ void top_mark(const TopMarks& top, int depth, int32_t path,
+                                         int child, int32_t slot, int32_t n_words) {
+  if (static_cast<uint32_t>(slot) >= static_cast<uint32_t>(n_words)) return;
+  const int entry = depth == 0 ? child : depth == 1 ? 8 + path * 8 + child
+                                                    : 72 + path * 8 + child;
+  if (VISITS == 1) {
+    const unsigned peers = __match_any_sync(__activemask(), entry);
+    if ((threadIdx.x & 31) == __ffs(peers) - 1) {
+      atomicAdd(top.count + entry, __popc(peers));
+      top.slot[entry] = slot;
+    }
+  } else {
+    top.count[entry] = 1;
+    top.slot[entry] = slot;
+  }
+}
+
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
 // VISITS: 0 = none, 1 = counts, 2 = 0/1 flags. SHADOW: the shadow mode.
 // ROOT: the root-restart form. BRICKS: brick mode (TABLE 0 only).
+// `top`: the block's marks at the top of the tree (the root form's counting
+// and flag forms).
 template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
-__device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
+__device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const TopMarks& top) {
   constexpr bool kCombined = TABLE == 2;
   float o[3], d[3];
   if (SHADOW) {
@@ -278,15 +337,42 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
     // descent past 126 levels, where the exponent bits alone would wrap.
     float inv1 = ot::pow2(-(depth + 1));
     bool bmode = false;
+    // The root form's top-of-tree marks (kTopMarks): the depth where the
+    // current descent started, and its path (children at depths 0 and 1).
+    constexpr bool kTop = kTopMarks<TABLE, VISITS, SHADOW, ROOT>;
+    int32_t depth0 = depth, path = 0;
 
     for (int it = 0; it < a.max_iters; ++it) {
+      bool pb[3];
+      for (int k = 0; k < 3; ++k) pb[k] = STRICT ? v[k] > cp[k] : v[k] >= cp[k];
+      const int child = pb[0] * 4 + pb[1] * 2 + pb[2];
+      // Brick forms: each lane's one load of the trip is issued here,
+      // before the lanes part into brick trips and descents, so a warp
+      // whose lanes split waits on one load latency, not two in turn (JAX
+      // reads one row a trip either way, tracer.py:471-474). A brick lane
+      // loads the first 16 bytes of its brick row (w0-w3, all the DDA
+      // reads; unsigned: a slot from a garbage table's w3 reads a row
+      // inside), a descent lane the word `child` of its row by JAX's row
+      // gather (below).
+      uint4 row = make_uint4(0u, 0u, 0u, 0u);
+      uint32_t row_word = 0u;
+      if (BRICKS) {
+        const uint32_t unode = static_cast<uint32_t>(node);
+        const uint32_t last_brick = static_cast<uint32_t>(n_words - 1);
+        if (bmode) {
+          row = __ldg(reinterpret_cast<const uint4*>(a.bricks) +
+                      2 * static_cast<int64_t>(min(unode, last_brick)));
+        } else if ((unode >> 3) > static_cast<uint32_t>(last_row)) {
+          const uint32_t brow = min((unode >> 3) - last_row - 1, last_brick);
+          row_word = __ldg(a.bricks + 8 * static_cast<int64_t>(brow) + child);
+        } else {
+          const int32_t at = (node & ~7) | child;
+          row_word = at < n_words ? __ldg(words + at) : 0u;
+        }
+      }
       if (BRICKS && bmode) {
         // One brick trip: the root's row, then up to brick_k sub-steps.
-        // (Unsigned: a slot from a garbage table's w3 reads a row inside.)
-        const uint32_t brow =
-            min(static_cast<uint32_t>(node), static_cast<uint32_t>(n_words - 1));
-        const uint4 br =
-            __ldg(reinterpret_cast<const uint4*>(a.bricks) + 2 * static_cast<int64_t>(brow));
+        const uint4 br = row;
         const float h = inv1, q1 = h * 0.5f, q2 = h * 0.25f;
         bool done = false;
         for (int sub = 0; sub < a.brick_k; ++sub) {
@@ -387,6 +473,7 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
               inv1 = ot::pow2(-1);
               for (int k = 0; k < 3; ++k) cp[k] = 0.0f;
             }
+            depth0 = depth;
             break;
           }
         }
@@ -394,22 +481,24 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
         continue;
       }
       const int32_t depth1 = depth + 1;
-      bool pb[3];
-      for (int k = 0; k < 3; ++k) pb[k] = STRICT ? v[k] > cp[k] : v[k] >= cp[k];
-      const int child = pb[0] * 4 + pb[1] * 2 + pb[2];
       float np[3];
       for (int k = 0; k < 3; ++k) np[k] = cp[k] + (pb[k] ? inv1 : -inv1);
       const int32_t idx = node + child;
-      mark<VISITS>(a.visits, idx, n_words);  // out-of-pool marks drop, as JAX's
+      // Out-of-pool marks drop, as JAX's.
+      if (kTop && depth0 == 0 && depth < 3) {
+        top_mark<VISITS>(top, depth, path, child, idx, n_words);
+        path = depth == 0 ? child : path * 8 + child;
+      } else {
+        mark<VISITS>(a.visits, idx, n_words);
+      }
       // JAX's row gather: word `child` of row min(node / 8, rows - 1) of the
       // pool padded with zero words to whole rows (XLA clamps the row, not
       // the word). In a well-formed pool this is word idx. In brick mode the
-      // rows past the pool's are the brick table's.
+      // rows past the pool's are the brick table's, and the word came with
+      // the trip's load.
       uint32_t word;
-      if (BRICKS && (static_cast<uint32_t>(node) >> 3) > static_cast<uint32_t>(last_row)) {
-        const uint32_t brow = min((static_cast<uint32_t>(node) >> 3) - last_row - 1,
-                                  static_cast<uint32_t>(n_words - 1));
-        word = __ldg(a.bricks + 8 * static_cast<int64_t>(brow) + child);
+      if (BRICKS) {
+        word = row_word;
       } else {
         const int32_t at = (min(node >> 3, last_row) << 3) | child;
         word = at < n_words ? __ldg(words + at) : 0u;
@@ -513,6 +602,7 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i) {
       if (in_parent) continue;
       node = w.valid ? w.index : 0;
       depth = w.valid ? w.depth : 0;
+      depth0 = depth;
       inv1 = ot::pow2(-(depth + 1));
       for (int k = 0; k < 3; ++k) cp[k] = w.valid ? w.c[k] : 0.0f;
     }
@@ -544,9 +634,28 @@ template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICK
 __global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const TraceArgs a) {
   const int lane = threadIdx.x & 31;
   const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (tile >= a.n_tiles) return;
-  const int32_t i = ray_of(a, tile, lane);
-  if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i);
+  if constexpr (!kTopMarks<TABLE, VISITS, SHADOW, ROOT>) {
+    if (tile >= a.n_tiles) return;
+    const int32_t i = ray_of(a, tile, lane);
+    if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i, TopMarks{});
+  } else {
+    __shared__ int32_t count[kTopEntries], slot[kTopEntries];
+    for (int e = threadIdx.x; e < kTopEntries; e += ot::kBlock) count[e] = 0;
+    __syncthreads();
+    if (tile < a.n_tiles) {
+      const int32_t i = ray_of(a, tile, lane);
+      if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i, {count, slot});
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTopEntries; e += ot::kBlock) {
+      if (count[e] == 0) continue;
+      if (VISITS == 1) {
+        atomicAdd(a.visits + slot[e], count[e]);
+      } else {
+        a.visits[slot[e]] = 1;
+      }
+    }
+  }
 }
 
 template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS = false>

@@ -913,6 +913,68 @@ def k4_bytes(lit: torch.Tensor, out_bytes: int = 3, shadow: bool = True) -> int:
     return n * (2 + out_bytes) + 32 * (shadow_sectors + word_sectors + normal_sectors)
 
 
+def touched_rows(visits: torch.Tensor) -> int:
+    """The 8-word rows that hold a marked slot of ``visits``: the pool rows a
+    pass without bricks read, from its visit counts."""
+    return int(torch.unique(torch.nonzero(visits).flatten() >> 3).numel())
+
+
+def k1_bytes(rows: int, n: int, marked: int = 0) -> int:
+    """Bytes a primary K1 pass of ``n`` rays must move, each once: the
+    ``rows`` 32-byte rows its trips read, the origin and each ray's direction
+    in (12 bytes each), 42 bytes of results out a ray, and for a counting
+    pass each of the ``marked`` slots it marks read and written (8 bytes)."""
+    return rows * 32 + 12 + n * 54 + marked * 8
+
+
+def k1_shadow_bytes(rows: int, n: int, traced: int, marked: int = 0) -> int:
+    """Bytes K1's shadow mode must move, each once: the ``rows`` rows its
+    trips read, 2 bytes a ray (the primary hit in, the shadow hit out), the
+    12-byte position and normal of each of the ``traced`` rays, and 8 bytes
+    for each of the ``marked`` slots of a counting pass."""
+    return rows * 32 + n * 2 + traced * 12 + marked * 8
+
+
+def slot_depths(words: np.ndarray, max_depth: int = 64) -> np.ndarray:
+    """int32[pool]: the depth of the node whose child group holds each slot
+    (0 for the root group), found from the root through interior words, or
+    -1 for a slot no descent reaches. A visit mark of a node at depth d
+    lands on a slot of depth d. Groups past the pool's end, and groups seen
+    before (a cycle), are not followed."""
+    words = np.asarray(words, dtype=np.uint32)
+    pool = words.shape[0]
+    depth = np.full(pool, -1, np.int32)
+    groups = np.zeros(1, np.int64)
+    for d in range(max_depth):
+        slots = (groups[:, None] * 8 + np.arange(8)).reshape(-1)
+        slots = slots[slots < pool]
+        slots = slots[depth[slots] < 0]
+        if slots.size == 0:
+            break
+        depth[slots] = d
+        payload = (words[slots] >> np.uint32(4)).astype(np.int64)
+        child = payload[payload < VOXEL_OFFSET]
+        groups = np.unique(child[(child % 8 == 0) & (child < pool)] // 8)
+    return depth
+
+
+def longest_trips(trace_capped, live: torch.Tensor, cap: int) -> int:
+    """The loop trips of the longest ray of ``live`` (rays that resolve under
+    the trip cap ``cap``): the least T at which ``trace_capped(T)`` (the
+    same pass with ``max_iters`` = T) leaves none of them unresolved. A ray
+    that resolves reports a depth of 1 or more and one still active after
+    T trips reports 0, and a ray resolved under T is resolved under T + 1,
+    so a binary search finds T."""
+    lo, hi = 0, cap
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if bool(((trace_capped(mid).depth == 0) & live).any()):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
 def shade(result: TraceResult, shadow_hit=None, show_steps=False,
           sun_dir=DEFAULT_SUN, gamma=2.2, u8=False,
           hits_visits=None) -> torch.Tensor:

@@ -8,7 +8,11 @@ so the port builds the bench's pool word for word without the native library
 or any module of the JAX package. ``shell_world`` is the deep shell as a
 streaming world for the Session. ``write_asset_root`` writes a synthetic
 block library and structures in the layout the World and the structure
-stamps read, for runs without the reference's assets.
+stamps read, for runs without the reference's assets. ``terrain`` is a
+generated island chunk that spans the root cube, seen from
+``TERRAIN_CAMERA`` low over its surface, a scene whose rays cross many fine
+cells; ``chain_pool`` is a pool whose every descent is one long chain of
+dependent row reads.
 """
 
 from __future__ import annotations
@@ -187,6 +191,48 @@ def write_asset_root(root: str, seed: int = 0, block_depth: int = 3) -> str:
         with open(os.path.join(root, "structures", f"{name}.vox"), "wb") as f:
             f.write(save_vox(tree, 4))
     return root
+
+
+# A low camera over the island's top surface, looking across it: the rays
+# toward the horizon graze the surface (position, look, vertical fov).
+TERRAIN_CAMERA = (np.array([0.0, 0.2, -0.7], np.float32),
+                  np.array([0.1, -0.25, 1.0], np.float32), 70.0)
+# Leaf colours of the generator's block ids (stone, grass).
+_TERRAIN_RGB = {1: 0x808080, 3: 0x40A030}
+
+
+def terrain(depth: int = 9, device="cuda") -> np.ndarray:
+    """Pool words of the generated island terrain at ``chunk_depth`` =
+    ``depth``: ``Procedural.generate_chunk`` of the chunk whose corner is
+    (-1, -1, -1) at base depth 0, so the chunk is the root cube and a cell's
+    side is 2^(1 - depth). Its block references become leaves of a colour a
+    block (stone grey, grass green). ``device`` runs the grid (K7 on the
+    card, its plain version on the CPU)."""
+    from .gen.procedural import Procedural
+
+    chunk = Procedural(depth, device=device).generate_chunk((-1.0, -1.0, -1.0), 0)
+    ptr, val = chunk.pointers, chunk.values
+    rgb = np.zeros(max(_TERRAIN_RGB) + 1, np.uint32)
+    for block, colour in _TERRAIN_RGB.items():
+        rgb[block] = colour
+    block = np.where(ptr > CHUNK_OFFSET, ptr - CHUNK_OFFSET, 0)
+    colour = np.where(ptr > CHUNK_OFFSET, rgb[np.minimum(block, rgb.shape[0] - 1)], val)
+    return np.where(ptr < CHUNK_OFFSET, ptr << np.uint32(4),
+                    (np.uint32(VOXEL_OFFSET) + colour) << np.uint32(4)).astype(np.uint32)
+
+
+def chain_pool(groups: int, seed: int = 0) -> np.ndarray:
+    """Pool words of ``groups`` groups whose every word points at the next
+    group of one random cycle through all of them: a descent never ends,
+    and each of its trips reads a row it did not read in the last
+    ``groups - 1`` trips. One ray traced with ``max_iters`` = T takes T
+    dependent row reads and stays unresolved (K1's trip latency)."""
+    if groups < 2:
+        raise ValueError("a chain needs at least 2 groups")
+    order = np.random.default_rng(seed).permutation(groups)
+    nxt = np.empty(groups, np.int64)
+    nxt[order] = np.roll(order, -1)
+    return np.repeat((8 * nxt).astype(np.uint32) << np.uint32(4), 8)
 
 
 def random_scene(depth: int, n_voxels: int, seed: int) -> np.ndarray:

@@ -2,9 +2,13 @@
 brick mode) against the JAX package on the CPU, beyond the cases of
 ``test_torch_bricks.py``: random trees and rays (origins outside the cube
 included), forced caps, an explicit trip cap, the malformed pools, decorated
-pools without bricks, the shadow mode, the oracle and the tiled frame.
-Fields are held as in ``test_torch_bricks.py`` (hit_pos within 1e-5).
+pools without bricks, the shadow mode, the oracle, the tiled frame, and the
+generated island terrain from its grazing camera (``scenes.terrain``, the
+scene bricks are for). Fields are held as in ``test_torch_bricks.py``
+(hit_pos within 1e-5).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,6 +153,58 @@ def test_brick_trace_agrees_with_oracle():
     res_o = cpu_reference.trace_rays(words, o[0], d)
     agree = ttracer.agreement(a, res_o)
     assert (~agree).mean() < 0.005 and a["hit"].sum() > 100
+
+
+TERRAIN_DEPTH, TERRAIN_W, TERRAIN_H = 5, 48, 27
+
+
+@functools.lru_cache(maxsize=None)
+def _terrain():
+    """The island terrain at chunk_depth 5 (its grid by the plain version)
+    and the grazing camera's rays at 48x27."""
+    words = scenes.terrain(TERRAIN_DEPTH, device="cpu")
+    pos, look, fov = scenes.TERRAIN_CAMERA
+    _, ci = camera_matrices(pos, look, fov, TERRAIN_W, TERRAIN_H)
+    o, d = generate_rays(ci, TERRAIN_W, TERRAIN_H)
+    d = np.asarray(d).reshape(-1, 3)
+    return words, np.broadcast_to(np.asarray(o), d.shape).copy(), d
+
+
+@pytest.mark.parametrize("restart", [True, False])
+@pytest.mark.parametrize("k", [1, 4])
+def test_terrain_brick_trace_equals_jax(restart, k):
+    """The terrain from its grazing camera (inside the root cube): every
+    field and every visit slot equal to JAX ``trace(bricks=...)``, in both
+    restart forms, and every field equal to the port's traversal without
+    bricks. The rays cross fine cells inside bricks."""
+    words, o, d = _terrain()
+    kw = dict(parent_restart=restart, brick_k=k)
+    visits = torch.zeros(words.shape[0], dtype=torch.int32)
+    a = _port(words, o, d, visits=visits, **kw)
+    b, vb = _jax(words, o, d, with_visits=True, **kw)
+    _assert_exact(a, b)
+    np.testing.assert_array_equal(visits.numpy(), vb)
+    plain = ttracer.to_numpy(ttracer.trace(state.u32_to_device(words, "cpu"),
+                                           torch.from_numpy(o), torch.from_numpy(d),
+                                           parent_restart=restart))
+    _assert_same(a, plain)
+    assert a["hit"].mean() > 0.4 and (~a["hit"]).any()
+
+
+def test_terrain_scene_and_camera():
+    """The terrain is the island (stone and grass leaves, no block
+    reference left), and the camera sits inside the root cube above its
+    top: the rays that hit, hit at grazing depths below the camera."""
+    words, o, d = _terrain()
+    payload = words >> np.uint32(4)
+    leaves = payload[payload >= VOXEL_OFFSET] - VOXEL_OFFSET
+    assert set(np.unique(leaves)) == {0, 0x808080, 0x40A030}
+    pos = scenes.TERRAIN_CAMERA[0]
+    assert np.all(np.abs(pos) < 1.0)
+    res = ttracer.to_numpy(ttracer.trace(state.u32_to_device(words, "cpu"),
+                                         torch.from_numpy(o), torch.from_numpy(d)))
+    assert (res["hit_pos"][res["hit"], 1] < pos[1]).all()
+    np.testing.assert_array_equal(words, scenes.terrain(TERRAIN_DEPTH, device="cpu"))
 
 
 def _filled_interior(words):

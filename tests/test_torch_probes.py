@@ -3,6 +3,8 @@
 construction, the wrappers' checks, and the probe entry point on the CPU at
 reduced table and index counts."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -410,3 +412,100 @@ def test_add_scalar_edges_match_numpy(dtype, view, on_device):
     got = _host(gather.add_scalar(x, scalar), base_np)
     np.testing.assert_array_equal(got, base_np[lo:hi] + c)
     assert torch.equal(gather.add_scalar(x, scalar), gather.add_scalar_plain(x, scalar))
+
+
+_PTXAS = """ptxas info    : Function properties for _ZN12_GLOBAL__N_112trace_kernelILb1ELi0ELi1ELb0ELb1ELb0EEEvNS_9TraceArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 58 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi0ELb0ELb0ELb0EEEvNS_9TraceArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112trace_kernelILb0ELi0ELi0ELb1ELb0ELb1EEEvNS_9TraceArgsE
+    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 49 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112trace_kernelILb1ELi1ELi0ELb0ELb1ELb0EEEvNS_9TraceArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+"""
+
+
+def test_trace_steps_forms_registers_and_summary():
+    """The cross-tree K1 timer's host side: its metrics (the combined-table
+    frame, the root form's four passes with and without the table, each
+    scene's no-table, table and brick passes), the form names it reads
+    from ptxas (also a tree's from before the root and brick flags), the
+    registers it shows (the root form's counting and flag forms and the
+    brick forms; the others as their largest), and one summary line a
+    metric."""
+    from octree_tracer_tpu_torch.probes import trace_steps as ts
+
+    assert len(set(ts.METRICS)) == len(ts.METRICS) == 7 + 8 + 2 * 9
+    assert {"root_none_counts", "root_comb_shadow_counts", "terrain_bricks_k4",
+            "deep10_no_table", "terrain_bricks_root_counts"} <= set(ts.METRICS)
+    assert ts.form_name("_ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi1ELb0ELb1ELb0EEEvNS_9Trace"
+                        "ArgsE") == "s1t2v1h0r1b0"
+    assert ts.form_name("_Z12trace_kernelILb0ELi1ELi2ELb1EEv9TraceArgs") == "s0t1v2h1"
+    assert ts.form_name("_Z8k2_levelv") == "_Z8k2_levelv"
+    shown, others = ts.register_lines(_PTXAS.splitlines())
+    assert shown == {"s1t0v1h0r1b0": "58r/0+0s", "s0t0v0h1r0b1": "49r/4+8s"}
+    assert others == 46
+    samples = {"a": {m: [1.0, 3.0, 2.0] for m in ts.METRICS},
+               "b": {m: [0.5] for m in ts.METRICS}}
+    lines = ts.summary_lines(samples, ["a", "b"])
+    assert len(lines) == len(ts.METRICS)
+    assert lines[0] == "primary: a 2.0000 [1.0000, 3.0000]; b 0.5000 [0.5000, 0.5000]"
+    combined, brick = ts.SASS_FORMS
+    assert re.search(combined, "_ZN12_GLOBAL__N_112trace_kernelILb1ELi2ELi0ELb0ELb0ELb0EEEvNS_9"
+                               "TraceArgsE")
+    assert re.search(combined, "_Z12trace_kernelILb1ELi2ELi0ELb0EEv9TraceArgs")
+    assert re.search(brick, "_ZN12_GLOBAL__N_112trace_kernelILb1ELi0ELi0ELb0ELb0ELb1EEEvNS_9"
+                            "TraceArgsE")
+    assert not re.search(brick, "_ZN12_GLOBAL__N_112trace_kernelILb1ELi0ELi1ELb0ELb0ELb1EEEv")
+
+
+def test_trace_steps_digest_and_marks_by_depth():
+    """Digests hash the tensors' bytes in order; marks by depth sum a visit
+    array over the depth of each slot, slots no descent reaches left out."""
+    from octree_tracer_tpu_torch.probes import trace_steps as ts
+
+    a, b = torch.arange(6, dtype=torch.int32), torch.ones(3, dtype=torch.bool)
+    assert ts.digest(a, b) == ts.digest(a.clone(), b.clone()) != ts.digest(b, a)
+    assert len(ts.digest(a)) == 16
+    counts = torch.tensor([3, 1, 0, 5, 7, 2], dtype=torch.int32)
+    depths = np.array([0, 0, 1, 1, -1, 3], np.int32)
+    assert ts.marks_by_depth(counts, depths) == [4, 5, 0, 2]
+    assert ts.marks_by_depth(counts, np.full(6, -1, np.int32)) == []
+
+
+def test_k1_counters_patch_and_card():
+    """K1's counters patch the kernel's source at its anchors: the counters
+    once after the include, the trip count at the top of the trip loop,
+    every visit atomic counted (the kernel's atomics into the visit array);
+    a source without the anchors is refused; the probe needs a card."""
+    import os
+
+    from octree_tracer_tpu_torch import kernels
+    from octree_tracer_tpu_torch.probes import k1_counters
+
+    with open(os.path.join(kernels.CSRC_DIR, "trace.cu")) as f:
+        src = f.read()
+    out = k1_counters.instrumented_source(src)
+    assert out.count("__device__ unsigned long long g_k1_counters[8];") == 1
+    assert out.count("k1_count_atomic(), atomicAdd(") == len(
+        re.findall(r"atomicAdd\((a\.)?visits \+ ", src)) == 2
+    assert out.count("k1_count_shared(), atomicAdd(top.count + ") == 1
+    loop = out.index("    for (int it = 0; it < a.max_iters; ++it) {\n")
+    assert out.index("atomicAdd(&g_k1_counters[0], 1ull);") > loop
+    assert out.rstrip().endswith("}") and 'extern "C" int ot_k1_counters(' in out
+    with pytest.raises(ValueError, match="anchors"):
+        k1_counters.instrumented_source(src.replace('#include "common.cuh"\n', ""))
+    assert k1_counters.split_share({"warp_trips": 8, "split_warp_trips": 2}) == 0.25
+    assert k1_counters.split_share({"warp_trips": 0, "split_warp_trips": 0}) == 0.0
+
+
+def test_k1_counters_needs_the_card(monkeypatch, capsys):
+    from octree_tracer_tpu_torch.probes import k1_counters
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert k1_counters.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
