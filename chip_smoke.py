@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's ten CUDA kernels from ``octree_tracer_tpu_torch/csrc``
+Builds the port's eleven CUDA kernels from ``octree_tracer_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), checks each against its
 plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
@@ -51,6 +51,20 @@ against the NumPy oracle on a subsample, and drives the main paths:
   (``build_bricks``, raygen, ``render_frame(bricks=...)``) counted; and
   ``build_pages`` of deep10 with the paged frame equal to the unpaged
   one after the remap, K1 over the relayout timed against the original;
+- the JAX frame's schedules and ray orders (9d) on deep10 at 1080p: K3's
+  block-order form and K11 (``beam_start``) equal to their plain versions,
+  K11 on the terrain too, K1's start forms equal to plain on every field
+  and visit slot and to the pass without starts on every hit field, the
+  start forms of both restart forms and all three table kinds and of
+  brick mode and the seed forms (a table for first descents only,
+  primary and shadow mode) equal to plain on a band of rows, JAX's
+  flagship call (beam mode, rays in the block order, ``pre_permuted``,
+  ``raw_result``, u8, the combined table) equal to the pixel-order frame,
+  K4's block-order writes equal, the staged frame with ``beams`` equal to
+  the one without, the staged frame with ``warp_in_body=False`` and
+  ``trace_staged`` with a table equal to plain on the band; these paths
+  counted (K3's block form, K11, the start and seed forms in the kernels
+  line), the frames timed in turn;
 - ray generation (5): K3 bit for bit with its plain version, its kernel-alone
   time beside the wrapper's, and one call from a NumPy matrix under
   ``torch.cuda.set_sync_debug_mode("error")`` (the matrix goes by value);
@@ -194,6 +208,11 @@ KERNELS = {
                    "probes/pallas_min_probe.py:44"),
     "brick_rows": ("octree_tracer_tpu_torch/csrc/brick_rows.cu",
                    "octree_tracer_tpu/render/bricks.py:110"),
+    "beam_start": ("octree_tracer_tpu_torch/csrc/beam_start.cu",
+                   "octree_tracer_tpu/render/tracer.py:2987"),
+    # K3's block-order form (its own kernel in raygen.cu), phase 9d.
+    "raygen_block_major": ("octree_tracer_tpu_torch/csrc/raygen.cu",
+                           "octree_tracer_tpu/render/camera.py:100"),
 }
 
 
@@ -251,6 +270,13 @@ def kernel_name(mangled: str) -> str:
     if m:
         return ("trace_kernel<strict={}, table={}, visits={}, shadow={}, root={}, bricks={}>"
                 .format(*m.groups()))
+    m = re.search(r"trace_start_kernelILb(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        return ("trace_start_kernel<strict={}, table={}, visits={}, root={}, bricks={}>"
+                .format(*m.groups()))
+    m = re.search(r"trace_seed_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        return "trace_seed_kernel<strict={}, visits={}, shadow={}, root={}>".format(*m.groups())
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -430,20 +456,34 @@ def run(dev: torch.device) -> int:
     path, log = kernels.build()
     kernels.library()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {path}")
-    k1_forms = {}
+    k1_forms, start_forms, seed_forms = {}, {}, {}
     for fn, regs, spill_st, spill_ld in kernels.register_report(log):
         name = kernel_name(fn)
         phase("2 build", f"{name}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B")
         check(spill_st == spill_ld == 0, f"{name}: spills {spill_st}/{spill_ld} B")
-        if m := re.search(r"root=(\d), bricks=(\d)>", name):
+        if m := re.search(r"trace_seed_kernel<.*shadow=(\d), root=(\d)>", name):
+            check(regs <= 48, f"{name}: {regs} registers")
+            seed_forms[m.groups()] = seed_forms.get(m.groups(), 0) + 1
+            K1["registers"][name] = regs
+        elif m := re.search(r"root=(\d), bricks=(\d)>", name):
             # K1's launch bounds (5 blocks of 256 an SM) hold each form but
             # the brick forms (4 blocks, 64) to 48.
             check(m[2] == "1" or regs <= 48, f"{name}: {regs} registers")
-            k1_forms[m.groups()] = k1_forms.get(m.groups(), 0) + 1
+            key = ("start",) + m.groups() if name.startswith("trace_start") else m.groups()
+            forms = start_forms if name.startswith("trace_start") else k1_forms
+            forms[key] = forms.get(key, 0) + 1
             K1["registers"][name] = regs
     want = {("0", "0"): 30, ("1", "0"): 30, ("0", "1"): 10, ("1", "1"): 10}
     check(k1_forms == want, f"K1 instantiations (root, bricks): {k1_forms}, expected {want}")
+    # The start forms (phase 9d): primary only, every table and visit mode.
+    want = {("start", "0", "0"): 18, ("start", "1", "0"): 18, ("start", "0", "1"): 6,
+            ("start", "1", "1"): 6}
+    check(start_forms == want, f"K1 start forms (root, bricks): {start_forms}, expected {want}")
+    # The seed forms (phase 9d): a table for first descents only, primary
+    # (visits none, counts, flags) and shadow mode (none, counts).
+    want = {("0", "0"): 6, ("0", "1"): 6, ("1", "0"): 4, ("1", "1"): 4}
+    check(seed_forms == want, f"K1 seed forms (shadow, root): {seed_forms}, expected {want}")
     # K1's counters (probes/k1_counters.py), built beside the next phases
     # for 9b and 9c: an instrumented copy of trace.cu in its own library.
     K1["counters_dir"] = tempfile.mkdtemp(prefix="ot_k1_counters_")
@@ -831,6 +871,7 @@ def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci
           f"{hits_frac:.6f}")
     root_restart_phase(dev, report, words, origins, dirs, table, res_k, card)
     bricks_pages_phase(dev, report, words, words_np, origins, dirs, table, res_k, ci, card)
+    schedules_phase(dev, report, words, origins, dirs, table, res_k, ci, card)
 
     # 10. K5 and K6 against their plain versions on phase 9's visits. K5
     #     exactly equal at phase 10's two shapes (caps 65536, the Session's,
@@ -1142,6 +1183,371 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
           f"form's counting and flag forms: {regs}")
 
 
+def schedule_forms(dev, words, origin, dirs, table, st) -> dict:
+    """Phase 9d's K1 forms on the image rows ``TERRAIN_ROWS`` as a flat
+    batch (the plain version of the whole frame takes seconds a form): the
+    start forms (K11's block-8 starts) in both restart forms without a
+    table, with a warp table and with the combined table, and in brick mode
+    on the terrain (its own K11 starts); the seed forms (``warp_in_body=
+    False``: a table read for first descents only), both tables and both
+    restart forms, the primary pass and the shadow mode. Each equal to its
+    plain version on every field (the shadow mode's mask) and, counting and
+    flagging, on every visit slot (flags the counts' nonzero set). Returns
+    {form: its entry}, which ``schedules_phase`` reports."""
+    from octree_tracer_tpu_torch.render import bricks, tracer
+
+    r0, r1 = TERRAIN_ROWS
+    band = slice(r0 * W, r1 * W)
+    b_dirs = dirs[r0:r1].reshape(-1, 3).contiguous()
+    b_orig = origin.expand(b_dirs.shape[0], 3)
+    b_st = tuple(x[band].contiguous() for x in st)
+    if "terrain_bricks" not in K1:  # phase 9c's
+        K1["terrain_bricks"] = bricks.build_bricks(K1["terrain"][0])
+    dec, br = K1["terrain_bricks"]
+    t_words, t_origin, t_dirs = K1["terrain"]
+    t_st, _ = tracer.beam_start(dec, t_origin, t_dirs, 8)
+    t_b = t_dirs[r0:r1].reshape(-1, 3).contiguous()
+    tables = {"none": None, "warp": tracer.build_warp_table(words, LEVELS), "combined": table}
+    cases = {}
+    for restart in (True, False):
+        form = "parent" if restart else "root"
+        for name, t in tables.items():
+            cases[f"start {form} {name} table"] = (
+                words, b_orig, b_dirs, dict(start=b_st, warp_table=t))
+            if t is not None:
+                cases[f"seed {form} {name} table"] = (
+                    words, b_orig, b_dirs, dict(warp_table=t, warp_in_body=False))
+        cases[f"start {form} bricks terrain"] = (
+            dec, t_origin.expand(t_b.shape[0], 3), t_b,
+            dict(start=tuple(x[band].contiguous() for x in t_st), bricks=br, brick_k=4))
+    out = {}
+    for what, (w_, o_, d_, kw) in cases.items():
+        restart = " parent " in what
+        n_words = w_.shape[0]
+        v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        r_p = tracer.trace_plain(w_, o_, d_, visits=v_p, parent_restart=restart, **kw)
+        plain_s = time.perf_counter() - t0
+        errs = []
+        for flags, want in ((False, v_p), (True, (v_p > 0).int())):
+            v_k = torch.zeros_like(v_p)
+            r_k = tracer.trace(w_, o_, d_, visits=v_k, visit_flags=flags,
+                               parent_restart=restart, **kw)
+            differ = [f for f, a, c in zip(r_k._fields, r_k, r_p) if not torch.equal(a, c)]
+            check(not differ and torch.equal(v_k, want),
+                  f"K1 {what} (flags {flags}): {differ} differ from plain, visits on "
+                  f"{int((v_k != want).sum())} slots")
+            errs.append(max_abs_err(list(zip(r_k, r_p)) + [(v_k, want)]))
+        entry = dict(max_abs_err=max(errs), visits_exact=True, marks=int(v_p.sum()),
+                     hits=int(r_p.hit.sum()), plain_s=plain_s)
+        if what.startswith("seed"):
+            # The shadow mode from the same table, counted (every hit's ray,
+            # as a counting frame traces them; the culled mask is the
+            # frame's, held below).
+            v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
+            so, sd, active = tracer.shadow_rays(r_p, cull=False)
+            sh_p = tracer.trace_plain(w_, so, sd, active, visits=v_p, parent_restart=restart,
+                                      **kw).hit
+            v_k = torch.zeros_like(v_p)
+            sh_k = tracer.trace_shadow(w_, r_p, cull=False, visits=v_k, parent_restart=restart,
+                                       image_width=0, **kw)
+            check(torch.equal(sh_k, sh_p) and torch.equal(v_k, v_p),
+                  f"K1 {what} shadow mode: hits differ on {int((sh_k != sh_p).sum())} rays, "
+                  f"visits on {int((v_k != v_p).sum())} slots")
+            entry.update(shadow_hits=int(sh_p.sum()), shadow_marks=int(v_p.sum()))
+        out[what] = entry
+    return out
+
+
+def schedules_phase(dev, report, words, origins, dirs, table, res_k, ci, card) -> None:
+    """Phase 9d: the JAX frame's schedules and ray orders on the deep10
+    1080p frame. A block must divide both sides: 16 does not divide 1080,
+    and JAX's frame then skips the beam pre-pass (so does the port's), so
+    the phase takes blocks 8 (JAX's beam tile) and 24, and 6 for K3 (four
+    consecutive outputs across a tile's rows). K3's block form equal to its
+    plain version and to the pixel form after ``_pixel_to_block``; K11
+    (``beam_start``) equal to its plain version at blocks 8 and 24 (and the
+    ``>=`` descent) and on the terrain; K1's start forms (K11's starts,
+    block 8) equal to plain on every field and visit slot, without a table
+    and with the combined table, and to the no-start pass on every hit
+    field; every start and seed form on a band of rows (``schedule_forms``);
+    JAX's flagship call (beam mode, rays from K3's block form,
+    ``pre_permuted``, ``raw_result``, u8, the combined table) equal to the
+    pixel-order frame after ``_block_to_pixel``; K4's block-order writes
+    (row-major and Morton tiles) equal to its pixel-order frame; the staged
+    frame without a table with and without ``beams=8`` equal to the
+    pixel-order one, and ``beams=16`` launching no K11; the staged frame
+    with ``warp_in_body=False`` and ``trace_staged`` with the combined
+    table (the seed forms) equal to plain on the band. These paths counted,
+    the frames timed in turn, K1's trips with and without the starts
+    (``loop_trips``)."""
+    from octree_tracer_tpu_torch import kernels, scenes, state
+    from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
+    from octree_tracer_tpu_torch.probes.gather_probe import time_in_turn
+    from octree_tracer_tpu_torch.render import camera, tracer
+
+    n, n_words = W * H, words.shape[0]
+    origin = origins[0]
+    flat = dirs.reshape(n, 3)
+    ci_t = torch.from_numpy(ci).to(dev)
+    t_phase = time.perf_counter()
+
+    # K3's block form.
+    for b in (8, 6):
+        o_b, d_b = camera.generate_rays_device(ci, W, H, dev, block_major=b)
+        o_p, d_p = camera.generate_rays_device_plain(ci_t, W, H, block_major=b)
+        check(tuple(d_b.shape) == (n, 3) and torch.equal(d_b, d_p) and torch.equal(o_b, o_p),
+              f"raygen block {b}: kernel differs from plain by "
+              f"{float((d_b - d_p).abs().max())}")
+        check(torch.equal(d_b, tracer._pixel_to_block(flat, H, W, b)) and torch.equal(o_b, origin),
+              f"raygen block {b}: not the pixel form in block order")
+    k3 = time_in_turn({
+        "pixel": lambda: camera.generate_rays_device(ci, W, H, dev),
+        "block": lambda: camera.generate_rays_device(ci, W, H, dev, block_major=8)}, 5, 50)
+    report["raygen_block_major"].update(
+        max_abs_err=max_abs_err([(d_b, d_p)]), alone_ms=k3["block"]["median"],
+        alone_range=k3["block"]["range"], pixel_alone_ms=k3["pixel"]["median"],
+        ms=cuda_ms(lambda: camera.generate_rays_device(ci, W, H, dev, block_major=8), 50, 5),
+        plain_ms=cuda_ms(lambda: camera.generate_rays_device_plain(ci_t, W, H, 8), 5),
+        library_ms=None, **bound(n * 12 + 12 + 64))
+    r3 = report["raygen_block_major"]
+    phase("9d K3 block", f"{card}: block 8 and 6 equal to plain and to the pixel form "
+          f"after _pixel_to_block; alone in turn block 8 {r3['alone_ms']:.5f} ms "
+          f"{r3['alone_range']}, pixel {r3['pixel_alone_ms']:.5f}; wrapper {r3['ms']:.5f}; "
+          f"bound {r3['bound_ms']:.5f}; plain {r3['plain_ms']:.3f} ms")
+
+    # K11 against its plain version.
+    if "terrain" not in K1:
+        tw = state.u32_to_device(scenes.terrain(TERRAIN_DEPTH, dev), dev)
+        pos, look, fov = scenes.TERRAIN_CAMERA
+        to, td = camera.generate_rays_device(camera.camera_matrices(pos, look, fov, W, H)[1],
+                                             W, H, dev)
+        K1["terrain"] = (tw, to, td)
+    cases = {"deep10 b8": (words, origin, dirs, 8, True),
+             "deep10 b24": (words, origin, dirs, 24, True),
+             "deep10 b8 >=": (words, origin, dirs, 8, False),
+             "terrain b8": (*K1["terrain"], 8, True)}
+    errs, started = [], {}
+    for what, (w_, o_, d_, b, strict) in cases.items():
+        got = tracer.beam_start(w_, o_, d_, b, strict_descent=strict)
+        want = tracer.beam_start_plain(w_, o_, d_, b, strict_descent=strict)
+        pairs = list(zip(got[0], want[0])) + [(got[1], want[1])]
+        check(all(torch.equal(a, c) for a, c in pairs), f"beam_start {what} differs from plain")
+        errs.append(max_abs_err(pairs))
+        started[what] = (float((got[0][2] > 0).float().mean()),
+                         float(got[0][2].float().mean()),
+                         int((got[1] < w_.shape[0]).sum()))
+    st, visit_idx = tracer.beam_start(words, origin, dirs, 8)
+    tiles = visit_idx.shape[0]
+    rows = int(torch.unique(visit_idx[visit_idx < n_words] >> 3).numel())
+    report["beam_start"].update(
+        max_abs_err=max(errs), alone_ms=device_ms(lambda: tracer.beam_start(
+            words, origin, dirs, 8), 50),
+        ms=cuda_ms(lambda: tracer.beam_start(words, origin, dirs, 8), 50, 5),
+        plain_ms=cuda_ms(lambda: tracer.beam_start_plain(words, origin, dirs, 8), 3),
+        library_ms=None, tiles=tiles, rows=rows,
+        **bound(tracer.beam_start_bytes(n, tiles, visit_idx.shape[1], rows)))
+    rb = report["beam_start"]
+    phase("9d K11", f"{card}: equal to plain on {sorted(cases)} (rays with a start, mean "
+          f"start depth, tile marks: {started}); deep10 block 8: {tiles} tiles, "
+          f"{rows} pool rows; alone {rb['alone_ms']:.5f} ms, wrapper {rb['ms']:.5f}, bound "
+          f"{rb['bound_ms']:.5f} ({rb['bound_by']}), plain {rb['plain_ms']:.3f} ms")
+
+    # K1's start forms: equal to plain, and to the pass without starts.
+    start_entry = {}
+    for what, t in (("none", None), ("combined", table)):
+        base = res_k if t is not None else tracer.trace(words, origins, dirs)
+        v_k = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        v_p = torch.zeros_like(v_k)
+        r_k = tracer.trace(words, origins, dirs, start=st, warp_table=t, visits=v_k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_p = tracer.trace_plain(words, origins, flat, start=st, warp_table=t, visits=v_p)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        differ = [f for f, a, c in zip(r_k._fields, r_k, r_p) if not torch.equal(a, c)]
+        check(not differ and torch.equal(v_k, v_p), f"start, {what} table: {differ} differ "
+              f"from plain, visits on {int((v_k != v_p).sum())} slots")
+        # Without a table a start changes no field. With the combined table
+        # a ray's first descent starts at its start, not at its table cell,
+        # and its first step skips nothing (as in JAX), so a miss may leave
+        # the cube from another empty leaf (``depth``) after other steps
+        # (``steps``); the hit fields stay, but for knife-edge rays.
+        fields = ("hit", "forced", "index", "hit_pos", "normal", "word")
+        agree = (r_k.depth == base.depth) | ~base.hit
+        for f in fields:
+            a, c = getattr(r_k, f), getattr(base, f)
+            agree &= (a == c).reshape(n, -1).all(dim=1)
+        moved = int((~agree).sum())
+        if t is None:
+            check(moved == 0 and torch.equal(r_k.steps, base.steps)
+                  and torch.equal(r_k.depth, base.depth),
+                  f"start, no table: {moved} rays differ from the pass without starts")
+        check(moved <= 0.005 * n, f"start, {what} table: {moved} rays differ from the pass "
+              f"without starts")
+        trips = {k: loop_trips(lambda c, kw=kw: tracer.trace(words, origins, dirs, warp_table=t,
+                                                             max_iters=c, **kw), base)[0]
+                 for k, kw in (("start", {"start": st}), ("no_start", {}))}
+        times = time_in_turn({
+            "start": lambda: tracer.trace(words, origins, dirs, start=st, warp_table=t),
+            "no_start": lambda: tracer.trace(words, origins, dirs, warp_table=t)}, 5, 10)
+        start_entry[what] = dict(
+            max_abs_err=max_abs_err(zip(r_k, r_p)), visits_exact=True, moved_rays=moved,
+            trips=trips["start"], no_start_trips=trips["no_start"],
+            alone_ms=times["start"]["median"], alone_range=times["start"]["range"],
+            no_start_alone_ms=times["no_start"]["median"], plain_ms=plain_ms,
+            # The primary pass's bytes and each ray's 20-byte start.
+            **bound(tracer.k1_bytes(tracer.touched_rows(v_k), n) + 20 * n))
+        e = start_entry[what]
+        phase("9d K1 start", f"{card}: deep{DEPTH} {W}x{H}, {what} table, K11's block-8 "
+              f"starts: every field and all {n_words} visit slots equal to plain; {moved} "
+              f"rays differ from the pass without starts on a hit field; loop trips "
+              f"{e['trips']} with starts, {e['no_start_trips']} without; alone in turn "
+              f"{e['alone_ms']:.4f} ms {e['alone_range']} with, {e['no_start_alone_ms']:.4f} "
+              f"without; bound {e['bound_ms']:.4f} ms; plain counts {plain_ms:.0f} ms")
+
+    forms = schedule_forms(dev, words, origin, dirs, table, st)
+    phase("9d K1 forms", f"{card}: rows {TERRAIN_ROWS} of deep{DEPTH} {W}x{H} (and of the "
+          f"terrain with bricks): every start and seed form equal to plain on every field, "
+          f"shadow bit and visit slot, counts and flags: "
+          + "; ".join(f"{k} {v['hits']} hits {v['marks']} marks (plain {v['plain_s']:.1f} s)"
+                      for k, v in forms.items()))
+
+    # JAX's flagship call: rays in block order from K3, beam mode,
+    # pre_permuted, raw_result, u8, the combined table; counted.
+    sun = torch.tensor(tracer.DEFAULT_SUN)
+
+    def flagship():
+        o8, d8 = camera.generate_rays_device(ci, W, H, dev, block_major=8)
+        return tracer.render_frame(words, o8, d8.reshape(H, W, 3), sun, shadows=True,
+                                   mode="beam", raw_result=True, u8_image=True,
+                                   pre_permuted=True, warp_table=table)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    img_f, res_f, _ = flagship()
+    torch.cuda.synchronize()
+    flag_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(flag_launches == {"raygen": 1, "trace": 2, "shade_encode": 1},
+          f"the flagship call's launches: {flag_launches}")
+    img_px, res_px, _ = tracer.render_frame(words, origin, dirs, warp_table=table,
+                                            u8_image=True)
+    check(torch.equal(img_f, img_px), "the flagship image differs from the pixel-order frame")
+    back = [tracer._block_to_pixel(f, H, W, 8) for f in res_f]
+    differ = [f for f, a, c in zip(res_px._fields, back, res_px) if not torch.equal(a, c)]
+    check(not differ, f"the flagship result after _block_to_pixel differs on {differ}")
+    # K4's block-order writes, row-major and Morton tiles: the pixel-order
+    # frame's image, u8 and f32, from the result in block order.
+    sh_px = tracer.trace_shadow(words, res_px, warp_table=table, image_width=W)
+    for morton in (False, True):
+        order = (H, W, 8, morton)
+        r_bm = tracer.TraceResult(*(tracer._pixel_to_block(f, *order) for f in res_px))
+        sh_bm = tracer._pixel_to_block(sh_px, *order)
+        for u8 in (True, False):
+            check(torch.equal(tracer.shade(r_bm, sh_bm, u8=u8, block_order=order),
+                              tracer.shade(res_px, sh_px, u8=u8)),
+                  f"K4 in block order (Morton {morton}, u8 {u8}) differs from pixel order")
+    r_bm = tracer.TraceResult(*(tracer._pixel_to_block(f, H, W, 8) for f in res_px))
+    sh_bm = tracer._pixel_to_block(sh_px, H, W, 8)
+    k4 = time_in_turn({
+        "pixel": lambda: tracer.shade(res_px, sh_px, u8=True),
+        "block": lambda: tracer.shade(r_bm, sh_bm, u8=True, block_order=(H, W, 8, False))},
+        5, 20)
+
+    # The staged frame without a table, with and without beams=8; counted.
+    # beams=16 does not divide 1080: no pre-pass, as in JAX.
+    img_s, res_s, _ = tracer.render_frame(words, origin, dirs, u8_image=True, mode="staged")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tracer.render_frame(words, origin, dirs, u8_image=True, mode="staged", beams=16)
+    torch.cuda.synchronize()
+    check(not kernels.LAUNCHES["beam_start"], "beams=16 at 1080 rows ran the pre-pass")
+    kernels.reset_launches()
+    img_b, res_b, _ = tracer.render_frame(words, origin, dirs, u8_image=True, mode="staged",
+                                          beams=8)
+    torch.cuda.synchronize()
+    beam_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(beam_launches == {"beam_start": 1, "trace": 2, "shade_encode": 1},
+          f"the beams=8 frame's launches: {beam_launches}")
+    img_0, res_0, _ = tracer.render_frame(words, origin, dirs, u8_image=True)
+    check(torch.equal(img_s, img_0) and torch.equal(img_b, img_0),
+          "the staged frames differ from the pixel-order frame without a table")
+    differ = [f for f, a, b, c in zip(res_0._fields, res_s, res_b, res_0)
+              if not (torch.equal(a, c) and torch.equal(b, c))]
+    check(not differ, f"the staged frames' results differ on {differ}")
+    # The table for first descents only (the seed forms): JAX's staged
+    # frame with warp_in_body=False and trace_staged with its default,
+    # counted; rows TERRAIN_ROWS held to the plain versions.
+    kernels.reset_launches()
+    img_w, res_w, _ = tracer.render_frame(words, origin, dirs, warp_table=table, u8_image=True,
+                                          mode="staged", warp_in_body=False)
+    torch.cuda.synchronize()
+    seed_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(seed_launches == {"trace": 2, "shade_encode": 1},
+          f"the warp_in_body=False frame's launches: {seed_launches}")
+    kernels.reset_launches()
+    res_t, v_t = tracer.trace_staged(words, origins, flat, warp_table=table, with_visits=True)
+    torch.cuda.synchronize()
+    staged_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(staged_launches == {"trace": 1}, f"trace_staged's launches: {staged_launches}")
+    r0, r1 = TERRAIN_ROWS
+    b_dirs = dirs[r0:r1].reshape(-1, 3).contiguous()
+    b_orig = origin.expand(b_dirs.shape[0], 3)
+    r_p = tracer.trace_plain(words, b_orig, b_dirs, warp_table=table, warp_in_body=False)
+    so, sd, active = tracer.shadow_rays(r_p)
+    sh_p = tracer.trace_plain(words, so, sd, active, warp_table=table, warp_in_body=False).hit
+    img_p = tracer.encode_u8_plain(tracer.shade_plain(r_p, sh_p))
+    band = slice(r0 * W, r1 * W)
+    differ = [f for f, a, b, c in zip(r_p._fields, res_w, res_t, tracer._record_fields(r_p, False))
+              if not (torch.equal(a[band], c) and torch.equal(b[band], c))]
+    check(not differ and torch.equal(img_w[r0:r1].reshape(-1, 3), img_p),
+          f"the warp_in_body=False frame or trace_staged differ from plain on rows "
+          f"{TERRAIN_ROWS}: {differ}, image on "
+          f"{int((img_w[r0:r1].reshape(-1, 3) != img_p).any(dim=1).sum())} pixels")
+    v_k = torch.zeros_like(v_t)
+    tracer.trace(words, origins, flat, warp_table=table, warp_in_body=False, visits=v_k)
+    check(torch.equal(v_t, v_k), "trace_staged's visits differ from trace's")
+    d8 = camera.generate_rays_device(ci, W, H, dev, block_major=8)[1].reshape(H, W, 3)
+    frames = time_in_turn({
+        "pixel": lambda: tracer.render_frame(words, origin, dirs, warp_table=table,
+                                             u8_image=True),
+        "flagship": lambda: tracer.render_frame(
+            words, origin, d8, sun, mode="beam", raw_result=True, u8_image=True,
+            pre_permuted=True, warp_table=table),
+        "no_table": lambda: tracer.render_frame(words, origin, dirs, u8_image=True,
+                                                mode="staged"),
+        "no_table_beams8": lambda: tracer.render_frame(words, origin, dirs, u8_image=True,
+                                                       mode="staged", beams=8),
+        "table_first_descents": lambda: tracer.render_frame(
+            words, origin, dirs, warp_table=table, u8_image=True, mode="staged",
+            warp_in_body=False)}, 5, 10)
+    report["raygen_block_major"]["launches"] = flag_launches.get("raygen", 0)
+    report["beam_start"]["launches"] = beam_launches.get("beam_start", 0)
+    report["trace"]["start"] = dict(start_entry, frame_launches=beam_launches.get("trace", 0),
+                                    forms={k: v for k, v in forms.items()
+                                           if k.startswith("start")})
+    report["trace"]["seed"] = dict(
+        forms={k: v for k, v in forms.items() if k.startswith("seed")},
+        frame_launches=seed_launches.get("trace", 0),
+        trace_staged_launches=staged_launches.get("trace", 0),
+        frame_ms=frames["table_first_descents"]["median"])
+    report["shade_encode"].update(
+        block_order_launches=flag_launches.get("shade_encode", 0),
+        block_order_alone_ms=k4["block"]["median"], pixel_order_alone_ms=k4["pixel"]["median"])
+    report["trace"]["schedule_frames"] = {k: v["median"] for k, v in frames.items()}
+    med = {k: f"{v['median']:.4f} {v['range']}" for k, v in frames.items()}
+    phase("9d frames", f"{card}: deep{DEPTH} {W}x{H} shadows u8: JAX's flagship call "
+          f"(beam, K3 block 8, pre_permuted, raw_result, combined L{LEVELS}) equal to the "
+          f"pixel-order frame after _block_to_pixel, launches {flag_launches}; K4's "
+          f"block-order writes equal, alone in turn u8 {k4['block']['median']:.5f} ms "
+          f"(pixel order {k4['pixel']['median']:.5f}); staged without a table and with "
+          f"beams=8 equal to the pixel-order frame, launches {beam_launches}; the combined "
+          f"table for first descents only (staged frame, launches {seed_launches}; "
+          f"trace_staged, {staged_launches}) equal to plain on rows {TERRAIN_ROWS}; alone in "
+          f"turn, median ms [range]: {med}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def loop_trips(trace_capped, full) -> tuple[int, int]:
     """(total loop trips, a bound on the longest ray's) of the rays of
     ``full``, the uncapped result, counted with K1's own cap: a ray that
@@ -1320,8 +1726,10 @@ def terrain_bricks(dev, card) -> dict:
     pos, look, fov = scenes.TERRAIN_CAMERA
     origin, dirs = camera.generate_rays_device(camera.camera_matrices(pos, look, fov, W, H)[1],
                                                W, H, dev)
+    K1["terrain"] = (words, origin, dirs)  # phase 9d's K11 case
     origins = origin.expand(n, 3)
     dec, br = bricks.build_bricks(words)
+    K1["terrain_bricks"] = (dec, br)  # and its brick start forms
     table = skip.build_warp_skip_table(words, LEVELS)
     base = tracer.trace(words, origins, dirs)
 

@@ -6,6 +6,7 @@ from .feedback import (
     MAX_SUBDIVISIONS_PER_FRAME,
     MAX_UNSUBDIVISIONS_PER_FRAME,
     apply_patches,
+    pad_patches,
     select_candidates,
     select_candidates_packed,
 )
@@ -13,5 +14,5 @@ from .feedback import (
 __all__ = [
     "engine", "feedback", "process_subdivision", "process_unsubdivision",
     "MAX_SUBDIVISIONS_PER_FRAME", "MAX_UNSUBDIVISIONS_PER_FRAME",
-    "apply_patches", "select_candidates", "select_candidates_packed",
+    "apply_patches", "pad_patches", "select_candidates", "select_candidates_packed",
 ]

@@ -10,8 +10,10 @@ with its plain PyTorch version beside it:
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches its kernel or raises. ``apply_patches`` is a PyTorch
-index assignment (``feedback.py:139-148``). JAX's ``pad_patches`` is not
-ported: it only bounded the number of shapes XLA compiles.
+index assignment (``feedback.py:139-148``); ``pad_patches`` is JAX's host
+padding (``feedback.py:151``), for its callers (the port's patch path needs
+no fixed shapes), and ``fast_nonzero`` is ``render.tracer``'s, which JAX's
+module imports too.
 
 Per-frame counters: ``min(visits, 15)`` is the reference's 4-bit in-word
 counter, which its full re-upload zeroes every frame.
@@ -24,6 +26,7 @@ import torch
 
 from .. import kernels
 from ..core.voxel import VOXEL_OFFSET
+from ..render.tracer import fast_nonzero  # re-exported where JAX's feedback has it
 from ..state import u32_to_device, widen_u32
 
 # Candidate caps of the reference; it reserves word 0 of each buffer for the
@@ -183,3 +186,20 @@ def apply_patches(words: torch.Tensor, idx, vals) -> torch.Tensor:
     out[torch.from_numpy(idx[keep]).to(words.device)] = u32_to_device(
         vals[keep], words.device)
     return out
+
+
+def pad_patches(idx, vals, buckets=(256, 4096, 65536, 1048576)):
+    """(idx, vals) padded to the next bucket size with idx -1 and value 0,
+    as host NumPy arrays, as JAX's ``pad_patches`` (feedback.py:151) pads
+    them so that its patch scatter compiles a bounded number of shapes; a
+    patch past the last bucket raises. ``apply_patches`` drops the -1
+    entries."""
+    n = idx.shape[0]
+    for b in buckets:
+        if n <= b:
+            pidx = np.full(b, -1, dtype=np.int32)
+            pvals = np.zeros(b, dtype=np.uint32)
+            pidx[:n] = idx
+            pvals[:n] = vals
+            return pidx, pvals
+    raise ValueError(f"patch of {n} words exceeds largest bucket {buckets[-1]}")

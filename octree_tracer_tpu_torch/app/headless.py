@@ -5,8 +5,10 @@
 (``camera.generate_rays_device``), then the port's ``render_frame``, whose
 primary and shadow passes run K1 and whose shading and u8 encode run K4; on
 the CPU (``device="cpu"``) the plain PyTorch versions. ``backend="oracle"``
-keeps the NumPy oracle. The JAX ``render_scene``'s ``tile_size`` and its
-``mode`` to ``render_frame`` are TPU scheduling and have no counterpart.
+keeps the NumPy oracle. ``tile_size``, ``mode`` and ``beams`` go to
+``render_frame`` (JAX's ``render_scene`` takes ``tile_size`` and picks the
+tiled mode for ``show_hits`` and the staged one otherwise, whose outputs
+are the port's default frame's).
 
 PNG files are written with ``zlib`` and ``struct`` from the standard
 library (one IHDR chunk, filter-0 rows, IEND): no image library is needed.
@@ -50,6 +52,9 @@ def render_scene(
     octree_depth: int = 12,
     backend: str = "device",
     device="cuda",
+    tile_size: int | None = 128 * 1024,
+    mode: str | None = None,
+    beams: int | None = None,
 ):
     """Load a scene file and render one frame.
 
@@ -83,6 +88,7 @@ def render_scene(
     img, result, _ = tracer.render_frame(
         u32_to_device(words, dev), origin, dirs, sun_dir=sun_dir, shadows=shadows,
         show_steps=show_steps, show_hits=show_hits, misc_bool=misc_bool, u8_image=True,
+        tile_size=tile_size, mode=mode, beams=beams,
     )
     return img.cpu().numpy(), result
 

@@ -30,4 +30,11 @@ inline unsigned blocks_for(int64_t n) {
 // level by level instead (csrc/trace.cu).
 __device__ __forceinline__ float pow2(int e) { return __int_as_float((e + 127) << 23); }
 
+// 2^e for any e <= 127, as the plain versions' `_pow2`: exact down to the
+// subnormal 2^-149, 0 below.
+__device__ __forceinline__ float pow2_exact(int e) {
+  if (e >= -126) return pow2(e);
+  return e >= -149 ? __int_as_float(1 << (e + 149)) : 0.0f;
+}
+
 }  // namespace ot

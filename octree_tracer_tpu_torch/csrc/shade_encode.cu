@@ -26,6 +26,12 @@
 //   so sky regions skip their sectors; a lit pixel's three gamma powf calls
 //   are independent.
 // Each value is computed by the same operations as in the plain version.
+//
+// Block-order input (JAX's beam frame with raw_result, tracer.py:3538-3545):
+// when `block` > 0 ray i is pixel _block_to_pixel(i) of a `width`-wide image
+// (tiles of block x block rays, row-major or Morton within the tile), and
+// the kernel writes its colour at that pixel, so the image comes out in
+// pixel order with no pass of its own.
 #include <climits>
 
 #include "common.cuh"
@@ -66,7 +72,31 @@ struct ShadeArgs {
   int32_t n_visits;           // pool
   const float* table;         // the table for this gamma
   void* out;                  // f32[n, 3] or u8[n, 3]
+  int32_t width;              // block order (block > 0): the image's width,
+  int32_t block;              // the tile's side
+  int32_t morton;             // and Morton order within the tile
 };
+
+// The pixel of ray i of the block order: its tile, then its place in the
+// tile, row-major or with y and x interleaved bit by bit (y_k x_k ... y_0
+// x_0, tracer.py:1144-1147).
+__device__ __forceinline__ int64_t pixel_of(const ShadeArgs& a, int64_t i) {
+  const int64_t lanes = static_cast<int64_t>(a.block) * a.block;
+  const int64_t tile = i / lanes;
+  const int in = static_cast<int>(i - tile * lanes);
+  const int wb = a.width / a.block;
+  int y = 0, x = 0;
+  if (a.morton) {
+    for (int k = 0; (1 << k) < a.block; ++k) {
+      x |= ((in >> (2 * k)) & 1) << k;
+      y |= ((in >> (2 * k + 1)) & 1) << k;
+    }
+  } else {
+    y = in / a.block;
+    x = in - y * a.block;
+  }
+  return (tile / wb * a.block + y) * static_cast<int64_t>(a.width) + tile % wb * a.block + x;
+}
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
@@ -120,6 +150,7 @@ __global__ void __launch_bounds__(kThreads) shade_encode_kernel(const ShadeArgs 
   } else {
     shared = kSkyF;
   }
+  const int64_t o = a.block > 0 ? pixel_of(a, i) : i;
   if (kU8) {
     uint8_t b[3];
     if (shared == kOneF) {
@@ -130,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) shade_encode_kernel(const ShadeArgs 
     } else {
       for (int c = 0; c < 3; ++c) b[c] = encode_search(f[c], a.table);
     }
-    for (int c = 0; c < 3; ++c) static_cast<uint8_t*>(a.out)[3 * i + c] = b[c];
+    for (int c = 0; c < 3; ++c) static_cast<uint8_t*>(a.out)[3 * o + c] = b[c];
   } else {
     if (shared == kOneF) {
       f[0] = __ldg(a.table + kOneF);
@@ -138,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) shade_encode_kernel(const ShadeArgs 
     } else if (shared == kSkyF) {
       f[0] = f[1] = f[2] = __ldg(a.table + kSkyF);
     }
-    for (int c = 0; c < 3; ++c) static_cast<float*>(a.out)[3 * i + c] = f[c];
+    for (int c = 0; c < 3; ++c) static_cast<float*>(a.out)[3 * o + c] = f[c];
   }
 }
 
@@ -220,13 +251,17 @@ __global__ void __launch_bounds__(kThreads) encode_check_kernel(const float* tab
 // Writes out as f32[n, 3] or (u8 != 0) u8[n, 3]. mode 0 shades, 1 is the
 // show_steps view, 2 the show_hits view (index and visits of n_visits >= 1
 // entries). table: from
-// ot_encode_table for this gamma. Returns cudaGetLastError().
+// ot_encode_table for this gamma. block > 0: the rays are in the block order
+// of a width-wide image (block divides width and n / width; morton != 0 for
+// the Morton order within a tile), and out is written in pixel order.
+// Returns cudaGetLastError().
 extern "C" int ot_shade_encode(const void* hit, const void* forced, const void* word,
                                const void* normal, const void* steps,
                                const void* shadow_hit, int64_t n, float neg_sun_x,
                                float neg_sun_y, float neg_sun_z, int mode, float gamma,
                                const void* index, const void* visits, int64_t n_visits,
-                               const void* table, void* out, int u8, void* stream) {
+                               const void* table, void* out, int u8, int width, int block,
+                               int morton, void* stream) {
   if (n == 0) return 0;
   const ShadeArgs a{static_cast<const uint8_t*>(hit),
                     static_cast<const uint8_t*>(forced),
@@ -241,7 +276,10 @@ extern "C" int ot_shade_encode(const void* hit, const void* forced, const void* 
                     static_cast<const int32_t*>(visits),
                     static_cast<int32_t>(n_visits < INT_MAX ? n_visits : INT_MAX),
                     static_cast<const float*>(table),
-                    out};
+                    out,
+                    width,
+                    block,
+                    morton};
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kSteps) {

@@ -17,6 +17,20 @@
 // reference counter's magnitudes. ROOT is a template parameter: the parent
 // form keeps its code and registers, and the root form carries no parent test.
 //
+// Start forms (START, JAX `trace(start=...)`, `_init_state` :239-290): the
+// first descent of each primary ray begins at the caller's node, centre and
+// depth (`beam_start`'s tile ancestors), in place of the table's lookup;
+// with a combined table the first step skips nothing, as in JAX. They are a
+// kernel of their own, `trace_start_kernel`, so the forms without a start
+// keep their code and registers, and only they read the 20 bytes a ray.
+//
+// Seed forms (JAX `trace_staged` and `render_frame` without `warp_in_body`,
+// tracer.py:1745-1777): the warp table (either kind) gives each ray's first
+// descent its start, as the table forms' lookup does, and no later step
+// reads it: restarts go to the parent or the root, and nothing skips. A
+// kernel of their own, `trace_seed_kernel`, primary and shadow mode, on the
+// body without a table.
+//
 // Brick mode (BRICKS, JAX `trace(bricks=...)`, render/bricks.py; only without
 // a table, which JAX forbids beside bricks): a descent into a decorated node
 // (bit 0 of the word) switches the ray to an arithmetic DDA over the node's
@@ -130,6 +144,10 @@ struct TraceArgs {
   int32_t* visits;            // [n_words] or null
   const uint32_t* bricks;     // [n_words, 8] brick rows (brick mode)
   int brick_k;                // sub-steps a brick trip
+  const int32_t* start_index; // [n] (start forms): where the first descent
+  const float* start_pos;     // [n, 3] begins, its cell's centre
+  const int32_t* start_depth; // [n] and its depth
+  int seed;                   // (seed forms) 1 = warp words, 2 = combined pairs
 };
 
 struct Resume {
@@ -253,10 +271,12 @@ __device__ __forceinline__ void top_mark(const TopMarks& top, int depth, int32_t
 
 // TABLE: 0 = no table, 1 = warp words, 2 = combined warp+skip pairs.
 // VISITS: 0 = none, 1 = counts, 2 = 0/1 flags. SHADOW: the shadow mode.
-// ROOT: the root-restart form. BRICKS: brick mode (TABLE 0 only).
+// ROOT: the root-restart form. BRICKS: brick mode (TABLE 0 only). START:
+// 0, or where the first descent starts: 1 at the caller's per-ray node
+// (primary only), 2 at the table's cell (`a.seed`; TABLE 0, no bricks).
 // `top`: the block's marks at the top of the tree (the root form's counting
 // and flag forms).
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS, int START>
 __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const TopMarks& top) {
   constexpr bool kCombined = TABLE == 2;
   float o[3], d[3];
@@ -323,7 +343,22 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
     }
     const int oct = (d[0] > 0.0f) * 4 + (d[1] > 0.0f) * 2 + (d[2] > 0.0f);
     int32_t node = 0, depth = 0, steps = 0, skw = 0;
-    if (TABLE != 0) {
+    if (START == 1) {
+      // JAX's `start` (tracer.py:263-288): it wins over the table's lookup,
+      // and the skip side starts at 0 until the first restart's lookup.
+      node = a.start_index[i];
+      depth = a.start_depth[i];
+      for (int k = 0; k < 3; ++k) cp[k] = a.start_pos[3 * i + k];
+    } else if (START == 2) {
+      // JAX's `_init_state` lookup (tracer.py:263-282), the table's only
+      // read: the body below has none.
+      const Resume w = a.seed == 2
+                           ? warp_lookup<STRICT, true>(a.table, a.levels, half_side, last, p)
+                           : warp_lookup<STRICT, false>(a.table, a.levels, half_side, last, p);
+      node = w.index;
+      depth = w.depth;
+      for (int k = 0; k < 3; ++k) cp[k] = w.c[k];
+    } else if (TABLE != 0) {
       const Resume w = warp_lookup<STRICT, kCombined>(a.table, a.levels, half_side, last, p);
       node = w.index;
       depth = w.depth;
@@ -335,12 +370,16 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
     // which is exact into the subnormals and rounds 2^-150 to 0, as the
     // plain version's `_pow2`. A pool whose pointers cycle can send a
     // descent past 126 levels, where the exponent bits alone would wrap.
-    float inv1 = ot::pow2(-(depth + 1));
+    // A caller's start may lie at any depth: its half side is built exactly
+    // into the subnormals.
+    float inv1 = START == 1 ? ot::pow2_exact(-(depth + 1)) : ot::pow2(-(depth + 1));
     bool bmode = false;
     // The root form's top-of-tree marks (kTopMarks): the depth where the
     // current descent started, and its path (children at depths 0 and 1).
+    // A start at depth 0 names its entries by the path only from the root
+    // node; from any other node its first descent marks as below depth 2.
     constexpr bool kTop = kTopMarks<TABLE, VISITS, SHADOW, ROOT>;
-    int32_t depth0 = depth, path = 0;
+    int32_t depth0 = START == 1 && node != 0 ? -1 : depth, path = 0;
 
     for (int it = 0; it < a.max_iters; ++it) {
       bool pb[3];
@@ -626,25 +665,24 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
   }
 }
 
-// One warp a tile, in a grid of all tiles. Five resident blocks an SM (40
-// warps) hold the primary instantiations to 48 registers, where they
-// otherwise take 51 and fit four (PERF.md §6). The brick forms, whose trip
-// holds the brick's state beside the ray's, fit four (64 registers).
-template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
-__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const TraceArgs a) {
+// One warp a tile, in a grid of all tiles (the kernels below).
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS, int START>
+__device__ __forceinline__ void trace_block(const TraceArgs& a) {
   const int lane = threadIdx.x & 31;
   const int32_t tile = blockIdx.x * kWarps + threadIdx.x / 32;
   if constexpr (!kTopMarks<TABLE, VISITS, SHADOW, ROOT>) {
     if (tile >= a.n_tiles) return;
     const int32_t i = ray_of(a, tile, lane);
-    if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i, TopMarks{});
+    if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS, START>(a, i, TopMarks{});
   } else {
     __shared__ int32_t count[kTopEntries], slot[kTopEntries];
     for (int e = threadIdx.x; e < kTopEntries; e += ot::kBlock) count[e] = 0;
     __syncthreads();
     if (tile < a.n_tiles) {
       const int32_t i = ray_of(a, tile, lane);
-      if (i >= 0) trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>(a, i, {count, slot});
+      if (i >= 0) {
+        trace_ray<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS, START>(a, i, {count, slot});
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x; e < kTopEntries; e += ot::kBlock) {
@@ -658,10 +696,45 @@ __global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const
   }
 }
 
+// Five resident blocks an SM (40 warps) hold the primary instantiations to
+// 48 registers, where they otherwise take 51 and fit four (PERF.md §6). The
+// brick forms, whose trip holds the brick's state beside the ray's, fit
+// four (64 registers).
+template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
+__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const TraceArgs a) {
+  trace_block<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS, 0>(a);
+}
+
+// The start forms (JAX `trace(start=...)`), a kernel of their own so that
+// the forms above keep their code: primary only, under the same bounds.
+template <bool STRICT, int TABLE, int VISITS, bool ROOT, bool BRICKS>
+__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5)
+    trace_start_kernel(const TraceArgs a) {
+  trace_block<STRICT, TABLE, VISITS, false, ROOT, BRICKS, 1>(a);
+}
+
+// The seed forms (a table for first descents only), likewise.
+template <bool STRICT, int VISITS, bool SHADOW, bool ROOT>
+__global__ void __launch_bounds__(ot::kBlock, 5) trace_seed_kernel(const TraceArgs a) {
+  trace_block<STRICT, 0, VISITS, SHADOW, ROOT, false, 2>(a);
+}
+
 template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS = false>
 void launch_kernel(const TraceArgs& a, cudaStream_t s) {
-  trace_kernel<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS>
-      <<<(a.n_tiles + kWarps - 1) / kWarps, ot::kBlock, 0, s>>>(a);
+  const unsigned grid = (a.n_tiles + kWarps - 1) / kWarps;
+  if constexpr (!SHADOW) {
+    if (a.start_index != nullptr) {
+      trace_start_kernel<STRICT, TABLE, VISITS, ROOT, BRICKS><<<grid, ot::kBlock, 0, s>>>(a);
+      return;
+    }
+  }
+  if constexpr (TABLE == 0 && !BRICKS) {
+    if (a.seed != 0) {
+      trace_seed_kernel<STRICT, VISITS, SHADOW, ROOT><<<grid, ot::kBlock, 0, s>>>(a);
+      return;
+    }
+  }
+  trace_kernel<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS><<<grid, ot::kBlock, 0, s>>>(a);
 }
 
 // Brick mode (a.bricks set) is instantiated without a table only.
@@ -715,6 +788,14 @@ void set_tiles(TraceArgs& a) {
   }
 }
 
+// in_body == 0 with a table: the table sets first descents only, so the
+// body is the one without a table (a caller's start wins over it).
+void set_seed(TraceArgs& a, int& table_mode, int in_body) {
+  if (in_body != 0 || table_mode == 0) return;
+  if (a.start_index == nullptr) a.seed = table_mode;
+  table_mode = 0;
+}
+
 int32_t clamp_words(int64_t n_words) {
   return static_cast<int32_t>(n_words < INT_MAX ? n_words : INT_MAX);
 }
@@ -729,6 +810,10 @@ int32_t clamp_words(int64_t n_words) {
 // visit_mode: 0 = no visits (visits null), 1 = counts, 2 = 0/1 flags into
 // visits int32[n_words]; bricks (u32[n_words, 8], 16-byte aligned, with
 // table_mode 0) or null: brick mode, brick_k sub-steps a brick trip;
+// start_index int32[n], start_pos f32[n, 3] and start_depth int32[n], or
+// all null: where each ray's first descent begins (the start forms);
+// in_body == 0 with a table: the table sets first descents only (a start
+// given wins over it), the seed forms;
 // n < 2^31 / 3. Returns cudaGetLastError() after the launch.
 extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                         int origin_stride, const void* dirs, const void* active_init,
@@ -736,7 +821,9 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
                         int levels, int strict, int root, int max_steps, int max_iters,
                         void* hit, void* forced, void* index, void* hit_pos,
                         void* normal, void* steps, void* depth, void* word, void* visits,
-                        int visit_mode, const void* bricks, int brick_k, void* stream) {
+                        int visit_mode, const void* bricks, int brick_k,
+                        const void* start_index, const void* start_pos,
+                        const void* start_depth, int in_body, void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
   a.words = static_cast<const uint32_t*>(words);
@@ -762,7 +849,11 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
   a.visits = static_cast<int32_t*>(visits);
   a.bricks = static_cast<const uint32_t*>(bricks);
   a.brick_k = brick_k;
+  a.start_index = static_cast<const int32_t*>(start_index);
+  a.start_pos = static_cast<const float*>(start_pos);
+  a.start_depth = static_cast<const int32_t*>(start_depth);
   set_tiles(a);
+  set_seed(a, table_mode, in_body);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch<false>(a, strict, root, table_mode, visit_mode, s);
   return static_cast<int>(cudaGetLastError());
@@ -771,14 +862,15 @@ extern "C" int ot_trace(const void* words, int64_t n_words, const void* origins,
 // Shadow pass over a primary result (prim_hit u8[n], prim_pos and
 // prim_normal f32[n, 3]) toward neg_sun = -normalize(sun): writes only
 // hit_out u8[n]; `cull` skips hits whose normal faces away from the sun;
-// visits (int32[n_words] or null) gets counts. Other arguments as ot_trace.
+// visits (int32[n_words] or null) gets counts. Other arguments (in_body
+// too) as ot_trace.
 extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* prim_hit,
                                const void* prim_pos, const void* prim_normal, float sx,
                                float sy, float sz, int cull, int64_t n, int width,
                                const void* table, int table_mode, int levels, int strict,
                                int root, int max_steps, int max_iters, void* hit_out,
                                void* visits, const void* bricks, int brick_k,
-                               void* stream) {
+                               int in_body, void* stream) {
   if (n == 0) return 0;
   TraceArgs a{};
   a.words = static_cast<const uint32_t*>(words);
@@ -801,6 +893,7 @@ extern "C" int ot_trace_shadow(const void* words, int64_t n_words, const void* p
   a.bricks = static_cast<const uint32_t*>(bricks);
   a.brick_k = brick_k;
   set_tiles(a);
+  set_seed(a, table_mode, in_body);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch<true>(a, strict, root, table_mode, visits != nullptr ? 1 : 0, s);
   return static_cast<int>(cudaGetLastError());

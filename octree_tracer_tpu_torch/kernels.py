@@ -38,25 +38,26 @@ NVCC_FLAGS = (
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0,
             "select_candidates": 0, "propagate_visits": 0, "block_grid": 0,
-            "gather_rows": 0, "add_scalar": 0, "brick_rows": 0}
+            "gather_rows": 0, "add_scalar": 0, "brick_rows": 0, "beam_start": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U32 = ctypes.c_uint32
 # argtypes of each C entry point; the last argument is always the stream.
 _SIGNATURES = {
     "ot_trace": [_P, _I64, _P, _I, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I]
-                + [_P] * 9 + [_I, _P, _I, _P],
+                + [_P] * 9 + [_I, _P, _I, _P, _P, _P, _I, _P],
     "ot_trace_shadow": [_P, _I64, _P, _P, _P, _F, _F, _F, _I, _I64, _I, _P, _I, _I, _I,
-                        _I, _I, _I] + [_P] * 3 + [_I, _P],
+                        _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
     "ot_warp_occupancy": [_P, _I64, _I, _P, _P, _P],
-    "ot_raygen": [_F] * 16 + [_I, _I, _P, _P, _P],
+    "ot_raygen": [_F] * 16 + [_I, _I, _I, _P, _P, _P],
     "ot_shade_encode": [_P] * 6 + [_I64, _F, _F, _F, _I, _F] + [_P, _P, _I64, _P, _P]
-                       + [_I, _P],
+                       + [_I, _I, _I, _I, _P],
     "ot_encode_table": [_P, _F, _P],
     "ot_encode_check": [_P, _P, _P],
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _I64, _P, _I],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],
     "ot_brick_rows": [_P, _I64, _I, _P, _P, _P],
+    "ot_beam_start": [_P, _I64, _P, _P, _I, _I, _I, _I, _I] + [_P] * 6,
     "ot_block_grid": [_F, _F, _F, _F, _I, _P, _P],
     "ot_gather_rows": [_P, _P, _I64, _P, _I, _I, _I64, _I64, _I, _I64, _I, _P],
     "ot_add_scalar_f32": [_P, _P, _I64, _I64, _I64, _I64, _I, _F, _P, _P],

@@ -154,7 +154,8 @@ def gather_frame(mesh: Mesh, img: torch.Tensor, result: tracer.TraceResult):
 def render_frame_sharded(mesh: Mesh, words, origin, dirs, sun_dir=tracer.DEFAULT_SUN,
                          shadows=True, with_visits=False, max_steps=tracer.MAX_STEPS,
                          show_steps=False, show_hits=False, misc_bool=False,
-                         u8_image=False, visit_flags=False, warp_table=None):
+                         u8_image=False, visit_flags=False, warp_table=None,
+                         tile_size=None, mode=None, beams=None):
     """``tracer.render_frame`` with the rows of ``dirs`` (f32[H, W, 3], the
     whole frame on every rank) sharded over ``mesh`` and the pool and table
     replicated. Returns, on every rank, (image [H, W, 3], TraceResult of
@@ -162,15 +163,19 @@ def render_frame_sharded(mesh: Mesh, words, origin, dirs, sun_dir=tracer.DEFAULT
 
     H must divide by the mesh size. ``show_hits`` shades from the rank's own
     counts, as JAX's shard-local view does; the visits returned are the
-    sum. Like the port's ``render_frame`` it takes no ``mode``, ``beams``
-    or ``tile_size``: one K1 yields what those schedules yield."""
+    sum. ``mode``, ``beams`` and ``tile_size`` go to each rank's
+    ``render_frame`` over its row block, as JAX's go to each shard's
+    (``mode=None`` is the port's own frame): a ``beams`` tile must divide
+    the block's rows (in the tiled and staged modes a tile that does not
+    starts no ray below the root, as in JAX)."""
     if dirs.shape[0] % mesh.size:
         raise ValueError(f"height {dirs.shape[0]} not divisible by mesh size {mesh.size}")
     img, result, visits = tracer.render_frame(
         words, origin, shard_rows(mesh, dirs), sun_dir, shadows=shadows,
         show_steps=show_steps, misc_bool=misc_bool, max_steps=max_steps,
         warp_table=warp_table, u8_image=u8_image, with_visits=with_visits,
-        show_hits=show_hits, visit_flags=visit_flags)
+        show_hits=show_hits, visit_flags=visit_flags, tile_size=tile_size, mode=mode,
+        beams=beams)
     if visits is not None:
         all_reduce_visits(mesh, visits)
     img, result = gather_frame(mesh, img, result)

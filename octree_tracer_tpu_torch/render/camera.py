@@ -3,13 +3,16 @@
 The host functions are the JAX package's ``render/camera.py`` NumPy code,
 copied so that the port imports no module of that package (tests hold each
 copy equal to its original). ``generate_rays_device`` is the counterpart of
-``camera.py:80`` in pixel order only: the block-major order was a TPU layout.
-On a CUDA device it launches kernel K3 (``csrc/raygen.cu``) with the matrix
-by value (``_raygen_args``), on the CPU it runs
-``generate_rays_device_plain``.
+``camera.py:80``, in pixel order or, under ``block_major``, in the block
+order of ``tracer._pixel_to_block`` that JAX's beam frames take
+(``render_frame(pre_permuted=True)``). On a CUDA device it launches kernel
+K3 (``csrc/raygen.cu``) with the matrix by value (``_raygen_args``), on the
+CPU it runs ``generate_rays_device_plain``.
 """
 
 from __future__ import annotations
+
+import operator
 
 import numpy as np
 import torch
@@ -86,19 +89,40 @@ def default_character():
     return pos, look
 
 
+def _check_block(width: int, height: int, block_major: int) -> int:
+    block = operator.index(block_major)
+    if block < 0 or (block and (width % block or height % block)):
+        raise ValueError(f"block_major {block_major} must be 0 or divide {width}x{height}")
+    if block and 3 * width * height >= 1 << 31:
+        raise ValueError(f"{width}x{height} rays: K3's block order indexes floats in int32")
+    return block
+
+
 def generate_rays_device_plain(camera_inverse: torch.Tensor, width: int,
-                               height: int):
+                               height: int, block_major: int = 0):
     """Plain PyTorch version of kernel K3, term by term as the kernel
-    computes it. Returns (origin f32[3], dirs f32[H, W, 3])."""
+    computes it. Returns (origin f32[3], dirs f32[H, W, 3]), or under
+    ``block_major`` > 0 dirs f32[H*W, 3] in its block order, each ray's
+    pixel taken from its place as JAX's ``_device_raygen`` takes it
+    (camera.py:117-126): the same values, reordered."""
+    block = _check_block(width, height, block_major)
     ci = camera_inverse
     origin = ci[:3, 3] / ci[3, 3]  # ci @ (0, 0, 0, 1), over its w
     dev = ci.device
-    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
-    xs = div_scalar(xs, width) * 2.0 - 1.0
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
-    ys = -(div_scalar(ys, height) * 2.0 - 1.0)
-    cx = xs[None, :].expand(height, width)
-    cy = ys[:, None].expand(height, width)
+    if block:
+        i = torch.arange(width * height, dtype=torch.int64, device=dev)
+        tile, lane = i // (block * block), i % (block * block)
+        py = (tile // (width // block)) * block + lane // block
+        px = (tile % (width // block)) * block + lane % block
+        cx = div_scalar(px.to(torch.float32) + 0.5, width) * 2.0 - 1.0
+        cy = -(div_scalar(py.to(torch.float32) + 0.5, height) * 2.0 - 1.0)
+    else:
+        xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
+        xs = div_scalar(xs, width) * 2.0 - 1.0
+        ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
+        ys = -(div_scalar(ys, height) * 2.0 - 1.0)
+        cx = xs[None, :].expand(height, width)
+        cy = ys[:, None].expand(height, width)
     world = [((cx * ci[j, 0] + cy * ci[j, 1]) + ci[j, 2]) + ci[j, 3]
              for j in range(4)]
     d = [world[j] / world[3] - origin[j] for j in range(3)]
@@ -121,22 +145,32 @@ def _raygen_args(camera_inverse) -> tuple[float, ...]:
     return tuple(float(v) for v in a.reshape(16))
 
 
-def generate_rays_device(camera_inverse, width: int, height: int, device):
-    """(origin f32[3], dirs f32[H, W, 3]) on ``device`` from the 4x4 inverse
-    camera matrix (f32 NumPy array or tensor).
+def generate_rays_device(camera_inverse, width: int, height: int, device="cuda",
+                         block_major: int = 0):
+    """(origin f32[3], dirs f32[H, W, 3]) on ``device`` (the card unless
+    the caller passes the CPU) from the 4x4 inverse camera matrix (f32
+    NumPy array or tensor).
+
+    ``block_major`` > 0 (it must divide both sides) returns dirs f32[H*W,
+    3] in the block order of ``tracer._pixel_to_block`` with that block,
+    as JAX's ``generate_rays_device(block_major=)`` does: the input
+    ``render_frame(mode="beam", beams=block_major, pre_permuted=True)``
+    takes, reshaped to [H, W, 3].
 
     On a CUDA device the matrix goes to kernel K3 by value: a NumPy array or
     a CPU tensor costs no copy to the card and no wait. A CUDA tensor is
     accepted too, at the price of one device-to-host read, which waits for
     the stream; the port's callers pass NumPy."""
-    device = torch.device(device)
+    device = kernels.resolve_device(device)
+    block = _check_block(width, height, block_major)
     if not kernels.uses_kernel(device):
         ci = torch.as_tensor(camera_inverse).to(device)
         kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
-        return generate_rays_device_plain(ci, width, height)
+        return generate_rays_device_plain(ci, width, height, block)
     args = _raygen_args(camera_inverse)
     origin = torch.empty(3, dtype=torch.float32, device=device)
-    dirs = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    kernels.launch("raygen", "ot_raygen", device, *args, width, height,
+    shape = (height * width, 3) if block else (height, width, 3)
+    dirs = torch.empty(shape, dtype=torch.float32, device=device)
+    kernels.launch("raygen", "ot_raygen", device, *args, width, height, block,
                    kernels.ptr(origin), kernels.ptr(dirs))
     return origin, dirs

@@ -28,12 +28,26 @@ JAX's result.
 ``brick_k`` (K1's brick mode over ``bricks.build_bricks``'s table, K10) and
 ``paged`` (a ``paging.build_pages`` relayout, traced by K1 as it is;
 ``render_frame`` maps hit slots back with ``paged_old_of_new``).
-``render_frame`` takes none of the JAX ``render_frame``'s TPU scheduling
-arguments (``mode``, ``tile_size``, ``beams``, ``beam_iters``,
-``fit_stages``, ``raw_result``, ``pre_permuted``, ``pack_pool``,
-``shadow_seed``, ``warp_in_body``): each of those is held bit-identical to
-plain ``trace`` by its own contract, so one traversal kernel yields their
-results. The port returns results in pixel order.
+
+JAX's frame schedules and ray orders:
+
+- ``beam_start`` (K11, ``csrc/beam_start.cu``) / ``beam_start_plain``:
+  ``beam_start`` (``tracer.py:2987``), each tile's common ancestor as the
+  start of its rays' first descent, which ``trace(start=...)`` (K1's start
+  forms) takes;
+- ``render_frame``'s ``mode`` (``"tiled"``, ``"staged"`` or ``"beam"``,
+  JAX's checks and errors), ``beams``, ``pre_permuted`` and ``raw_result``
+  (rays and results in the block order of ``_pixel_to_block`` /
+  ``_block_to_pixel``, ``tracer.py:1134-1172``; K4 writes the image in
+  pixel order), ``warp_in_body``, and JAX's tuning knobs, validated;
+  ``mode=None`` (the default) is the port's own frame, as before;
+- ``trace_staged`` (``tracer.py:1477``), JAX's tuple from one ``trace``;
+- ``fast_ranks``, ``fast_nonzero`` (``:69``, ``:85``) and the pool-size
+  constants ``BIG_POOL_WORDS`` and ``PACK_POOL_WORDS``.
+
+JAX's staged, beam and tiled schedules order the same per-ray loop, which
+its own contract holds bit-identical to ``trace`` on hits; one traversal
+kernel gives their results, in the order the caller asked for.
 
 Pool words, table words and ``TraceResult.word`` are int32 tensors holding
 u32 bits (see ``state.py``).
@@ -41,6 +55,7 @@ u32 bits (see ``state.py``).
 
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +67,11 @@ from ..state import div_scalar, narrow_u32, widen_u32
 from .skip import decode_skip
 
 MAX_STEPS = 100
+# JAX's pool-size thresholds for its TPU schedules (tracer.py:40, :45): the
+# big-pool row-gather rate and the pack9 row layout. The port's kernel reads
+# the pool one way at every size; the names are kept for JAX's callers.
+BIG_POOL_WORDS = 1 << 22
+PACK_POOL_WORDS = 1 << 20
 _EPS_DIR = 1e-6
 _EPS_NUDGE = 2e-6
 _EPS_SHADOW = 2.5e-6
@@ -70,6 +90,75 @@ class TraceResult(NamedTuple):
     depth: torch.Tensor    # int32[N]
     word: torch.Tensor     # int32[N] of u32 bits: the hit leaf's pool word,
     #                        0 on a miss or a forced hit.
+
+
+def fast_ranks(mask: torch.Tensor) -> torch.Tensor:
+    """int32[N]: the inclusive count of true elements up to each element,
+    less one, so each true element's position among the trues (JAX
+    ``fast_ranks``, tracer.py:69, which takes it by a blocked two-level
+    cumsum; the values are the same)."""
+    return (torch.cumsum(mask.reshape(-1).to(torch.int64), 0) - 1).to(_I32)
+
+
+def fast_nonzero(mask: torch.Tensor, size: int, fill_value: int,
+                 ranks: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[size]: the indices of the first ``size`` true elements of
+    ``mask`` in order, then ``fill_value`` (JAX ``fast_nonzero``,
+    tracer.py:85); ``ranks`` may be a caller's ``fast_ranks(mask)``."""
+    mask = mask.reshape(-1).to(torch.bool)
+    if ranks is None:
+        ranks = fast_ranks(mask)
+    out = torch.full((size,), fill_value, dtype=_I32, device=mask.device)
+    take = mask & (ranks < size)
+    # JAX's scatter takes a negative target from the end, as NumPy does.
+    tgt = ranks[take].long()
+    tgt = torch.where(tgt < 0, tgt + size, tgt)
+    src = torch.nonzero(take).flatten().to(_I32)
+    out[tgt[tgt >= 0]] = src[tgt >= 0]
+    return out
+
+
+def _block_perm(h: int, w: int, block: int, morton: bool):
+    """The view shape and axis order that take a flat [h*w] pixel-order
+    axis to block order (JAX ``_pixel_to_block``, tracer.py:1134): each
+    ``block`` x ``block`` tile's pixels contiguous, row-major within the
+    tile, or under ``morton`` in interleaved-bit order, pixel (y, x) at
+    offset y_k x_k ... y_0 x_0."""
+    if block < 1 or h % block or w % block:
+        raise ValueError(f"block {block} must divide {h}x{w}")
+    hb, wb = h // block, w // block
+    if not morton:
+        return (hb, block, wb, block), [0, 2, 1, 3]
+    lv = block.bit_length() - 1
+    if block != 1 << lv:
+        raise ValueError(f"a Morton block order needs a power-of-two block, got {block}")
+    perm = [0, lv + 1]
+    for k in range(lv):
+        perm += [1 + k, lv + 2 + k]
+    return (hb,) + (2,) * lv + (wb,) + (2,) * lv, perm
+
+
+def _pixel_to_block(x: torch.Tensor, h: int, w: int, block: int,
+                    morton: bool = False) -> torch.Tensor:
+    """``x`` (flat [h*w, ...] in pixel order) in block order; the inverse
+    is ``_block_to_pixel``."""
+    shape, perm = _block_perm(h, w, block, morton)
+    rest = tuple(x.shape[1:])
+    t = x.reshape(shape + rest).permute(perm + list(range(len(shape), len(shape) + len(rest))))
+    return t.reshape((h * w,) + rest)
+
+
+def _block_to_pixel(x: torch.Tensor, h: int, w: int, block: int,
+                    morton: bool = False) -> torch.Tensor:
+    """``x`` (flat [h*w, ...] in ``_pixel_to_block`` order) in pixel order."""
+    shape, perm = _block_perm(h, w, block, morton)
+    rest = tuple(x.shape[1:])
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    t = x.reshape(tuple(shape[p] for p in perm) + rest)
+    t = t.permute(inv + list(range(len(shape), len(shape) + len(rest))))
+    return t.reshape((h * w,) + rest)
 
 
 def warp_table_levels(warp_table) -> int:
@@ -179,11 +268,11 @@ def _max_iters(max_steps: int, max_iters: int | None) -> int:
     return int(max_iters)
 
 
-def _check_modes(words, warp_table, bricks, paged) -> None:
+def _check_modes(words, warp_table, bricks, paged, fuse_sibling=False) -> None:
     """JAX's exclusions (tracer.py:420-426), ``paged``'s geometry against
     the pool's length, and the brick table's shape."""
     if paged is not None:
-        if bricks is not None or warp_table is not None:
+        if bricks is not None or warp_table is not None or fuse_sibling:
             raise ValueError("paged excludes bricks/warp_table/fuse_sibling")
         if len(paged) != 3 or not all(isinstance(x, int) and x >= 1 for x in paged):
             raise ValueError(f"paged must be (top_rows, page_rows, n_pages) ints >= 1, "
@@ -194,9 +283,31 @@ def _check_modes(words, warp_table, bricks, paged) -> None:
                              f"{(top_rows + page_rows * n_pages) * 8} words, the pool "
                              f"{words.shape[0]}")
     if bricks is not None:
-        if warp_table is not None:
+        if warp_table is not None or fuse_sibling:
             raise ValueError("bricks exclude warp_table/fuse_sibling")
         kernels.check(bricks, "bricks", _I32, (words.shape[0], 8), words.device)
+
+
+def _check_start(start, n: int, dev) -> None:
+    """``start`` as JAX's ``_init_state`` takes it (tracer.py:239-290): a
+    triple (node index int32[n], node centre f32[n, 3], depth int32[n])."""
+    if not isinstance(start, (tuple, list)) or len(start) != 3:
+        raise TypeError("start must be (node_index, node_pos, depth)")
+    kernels.check(start[0], "start node_index", _I32, (n,), dev)
+    kernels.check(start[1], "start node_pos", _F32, (n, 3), dev)
+    kernels.check(start[2], "start depth", _I32, (n,), dev)
+
+
+def _check_warp_levels(warp_table, warp_levels) -> None:
+    """JAX takes ``warp_levels`` beside the table and indexes the table by
+    it; the port reads the levels from the table's length, and a
+    ``warp_levels`` that differs from them, which would misindex JAX's
+    table, raises."""
+    if warp_table is not None and warp_levels is not None:
+        levels = warp_table_levels(warp_table)
+        if warp_levels != levels:
+            raise ValueError(f"warp_levels {warp_levels} differs from the table's "
+                             f"{levels} levels")
 
 
 def _brick_read(pool, bt, node, child):
@@ -210,10 +321,23 @@ def _brick_read(pool, bt, node, child):
     return torch.where(r < rows, pool[_row_read(pool, node, child)], brick)
 
 
+def _warp_start(warp_table, origins, dirs, strict: bool):
+    """The start of each ray's first descent that JAX's ``_init_state``
+    looks up in the table at the ray's entry point (tracer.py:263-282):
+    (node int32[N], centre f32[N, 3], depth int32[N]), the root where the
+    cell's stored node does not hold the point."""
+    entry, _ = _entry_points(origins, dirs)
+    node, cp, depth, _, _ = _warp_lookup(
+        widen_u32(warp_table), warp_table_levels(warp_table), entry, strict,
+        warp_table_combined(warp_table))
+    return node.to(_I32), cp.contiguous(), depth.to(_I32)
+
+
 def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
                 strict_descent=True, warp_table=None, visits=None,
                 visit_flags=False, parent_restart=True,
-                max_iters=None, bricks=None, brick_k=4, paged=None) -> TraceResult:
+                max_iters=None, bricks=None, brick_k=4, paged=None,
+                start=None, warp_in_body=True) -> TraceResult:
     """Plain PyTorch version of kernel K1: JAX ``trace``, iterated over the
     rays still active.
 
@@ -227,8 +351,14 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     each trip reads, as JAX ``_visit_mark`` (tracer.py:355): a count, or a
     1 under ``visit_flags``. ``bricks`` runs JAX's brick DDA
     (``_brick_substeps``, tracer.py:832), ``paged`` checks the geometry of
-    a relayouted pool (``trace`` says more of both)."""
+    a relayouted pool, ``start`` sets each ray's first descent, and
+    ``warp_in_body=False`` reads the table for first descents only
+    (``trace`` says more of each)."""
     _check_modes(words, warp_table, bricks, paged)
+    if warp_table is not None and not warp_in_body:
+        if start is None:
+            start = _warp_start(warp_table, origins, dirs, strict_descent)
+        warp_table = None
     dev = dirs.device
     n = dirs.shape[0]
     n_words = words.shape[0]
@@ -283,7 +413,11 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     steps = torch.zeros(m, dtype=torch.int64, device=dev)
     skw = torch.zeros(m, dtype=torch.int64, device=dev)
     bm = torch.zeros(m, dtype=torch.bool, device=dev)
-    if table is not None:
+    if start is not None:  # it wins over the table, whose skip side starts at 0
+        node = start[0][ids].long()
+        cp = start[1][ids].to(_F32)
+        depth = start[2][ids].long()
+    elif table is not None:
         node, cp, depth, _, skip = _warp_lookup(table, levels, p, strict_descent,
                                                 combined)
         if combined:
@@ -522,12 +656,13 @@ def _brick_substeps(rows, slot, c, db, v, nrm, steps, p, d, rs, strict, max_step
         bmode=inst | desc, alive=~done)
 
 
-def _trace_checks(words, n, dev, warp_table, visits, visit_flags, bricks, paged):
+def _trace_checks(words, n, dev, warp_table, visits, visit_flags, bricks, paged,
+                  fuse_sibling=False):
     """Checks shared by K1's two wrappers; returns (table_mode, levels,
     visit_mode)."""
     kernels.check(words, "words", _I32, (None,), dev)
     _check_pool(words)
-    _check_modes(words, warp_table, bricks, paged)
+    _check_modes(words, warp_table, bricks, paged, fuse_sibling)
     if bricks is not None and kernels.uses_kernel(dev) and bricks.data_ptr() % 16:
         raise ValueError("bricks must start on a 16-byte boundary")
     if 3 * n >= 1 << 31:
@@ -547,7 +682,8 @@ def _trace_checks(words, n, dev, warp_table, visits, visit_flags, bricks, paged)
 def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
           strict_descent=True, warp_table=None, visits=None,
           visit_flags=False, parent_restart=True, max_iters=None, bricks=None,
-          brick_k=4, paged=None) -> TraceResult:
+          brick_k=4, paged=None, start=None, warp_levels=None, unroll=1,
+          fuse_sibling=False, warp_in_body=True) -> TraceResult:
     """Trace the rays ``dirs`` through the node pool ``words``.
 
     ``dirs`` is f32[N, 3], or an image f32[H, W, 3] of N = H*W rays, which
@@ -591,9 +727,36 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     cap (a cyclic pool's) stays unresolved here, as in the unpaged trace.
     ``paged`` excludes ``bricks`` and ``warp_table``, as in JAX.
 
-    On a CUDA device this launches kernel K1; on the CPU it is
-    ``trace_plain``.
+    ``start`` = (node index int32[N], node centre f32[N, 3], depth
+    int32[N]), in the rays' order, sets where each ray's first descent
+    begins, as JAX's ``_init_state`` takes it (tracer.py:239-290): any
+    ancestor whose cell holds the ray's entry point gives the root
+    descent's results (``beam_start`` makes such starts). It wins over the
+    table's lookup, and with a combined table the ray's first step skips no
+    empty cube (its skip side starts at 0, as in JAX); later restarts are
+    the table's or the root's as without it. Under ``visits`` the marks are
+    those of the descents actually taken.
+
+    ``warp_in_body=False`` reads ``warp_table`` (either kind) for each ray's
+    first descent only, as JAX's ``trace_staged`` does by default
+    (tracer.py:1745-1777): a ray starts at its entry cell's stored node,
+    and its restarts go to the parent or the root, with no step skipped. A
+    ``start`` given wins over the table, which is then not read at all.
+
+    ``warp_levels``, if given, must equal the table's levels (JAX indexes
+    its table by it; the port reads the levels from the table's length).
+    ``unroll`` and ``fuse_sibling`` are JAX's loop-composition knobs, whose
+    hits are bit-identical by JAX's own contract; they are validated (JAX
+    excludes ``fuse_sibling`` beside ``bricks`` and ``paged``) and change
+    nothing here. (JAX's fused sibling step can raise empty-leaf visit
+    counts; the port counts as without it.)
+
+    On a CUDA device this launches kernel K1 (its ``start`` forms when a
+    start is given, its seed forms for ``warp_in_body=False``); on the CPU
+    it is ``trace_plain``.
     """
+    operator.index(unroll)
+    _check_warp_levels(warp_table, warp_levels)
     dev = dirs.device
     image = dirs.dim() == 3
     kernels.check(dirs, "dirs", _F32, (None, None, 3) if image else (None, 3), dev)
@@ -604,12 +767,15 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     if active_init is not None:
         kernels.check(active_init, "active_init", torch.bool, (n,), dev)
     table_mode, levels, visit_mode = _trace_checks(words, n, dev, warp_table, visits,
-                                                   visit_flags, bricks, paged)
+                                                   visit_flags, bricks, paged, fuse_sibling)
+    if start is not None:
+        _check_start(start, n, dev)
     iters = _max_iters(max_steps, max_iters)
     if not kernels.uses_kernel(dev):
         return trace_plain(words, origins, dirs, active_init, max_steps,
                            strict_descent, warp_table, visits, visit_flags,
-                           parent_restart, iters, bricks, brick_k)
+                           parent_restart, iters, bricks, brick_k, start=start,
+                           warp_in_body=warp_in_body)
 
     res = TraceResult(
         hit=torch.empty(n, dtype=torch.bool, device=dev),
@@ -629,8 +795,146 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         kernels.ptr(warp_table), table_mode, levels, int(strict_descent),
         int(not parent_restart), max_steps, iters, *[kernels.ptr(f) for f in res],
         kernels.ptr(visits), visit_mode, kernels.ptr(bricks), _brick_k(brick_k),
+        *(kernels.ptr(t) for t in (start or (None, None, None))), int(warp_in_body),
     )
     return res
+
+
+def _entry_points(origins: torch.Tensor, dirs: torch.Tensor):
+    """JAX ``_init_state``'s prologue (tracer.py:250-261) on [N, 3] rays:
+    (entry point f32[N, 3], entered bool[N]); the origin inside the root
+    cube, else the slab entry (the origin on a miss)."""
+    o = origins.to(_F32)
+    d = dirs.to(_F32)
+    d = torch.where(d == 0.0, _EPS_DIR, d)
+    inside = _in_bounds(o)
+    dist = _ray_box_dist(o, d)
+    return torch.where(inside[:, None], o, o + d * dist[:, None]), inside | (dist != 0.0)
+
+
+def _check_beam(words, origin, dirs, block, max_beam_depth):
+    kernels.check(words, "words", _I32, (None,), dirs.device)
+    _check_pool(words)
+    kernels.check(origin, "origin", _F32, (3,), dirs.device)
+    kernels.check(dirs, "dirs", _F32, (None, None, 3), dirs.device)
+    h, w = dirs.shape[:2]
+    if operator.index(block) < 1 or h % block or w % block:
+        raise ValueError(f"beam block {block} must divide {h}x{w}")
+    if operator.index(max_beam_depth) < 0:
+        raise ValueError(f"max_beam_depth must be >= 0, got {max_beam_depth}")
+    if 3 * h * w >= 1 << 31:
+        raise ValueError(f"{h * w} rays: K11 indexes rays in int32, so n < 2^31 / 3")
+
+
+def beam_start_plain(words, origin, dirs, block=16, max_beam_depth=12,
+                     strict_descent=True):
+    """Plain PyTorch version of kernel K11, JAX ``beam_start``
+    (tracer.py:2987) expression by expression; its powers of two are
+    ``_pow2``'s, exact (JAX's are up to 12 levels on the CPU, ROADMAP §3)."""
+    _check_beam(words, origin, dirs, block, max_beam_depth)
+    h, w = dirs.shape[:2]
+    hb, wb = h // block, w // block
+    nb, n_pool = hb * wb, words.shape[0]
+    pool = widen_u32(words)
+    entry, entered = _entry_points(origin.reshape(1, 3).expand(h * w, 3), dirs.reshape(-1, 3))
+
+    def corners(a):
+        a = a.reshape((h, w) + tuple(a.shape[1:]))
+        return torch.stack([a[0::block, 0::block], a[block - 1::block, 0::block],
+                            a[0::block, block - 1::block],
+                            a[block - 1::block, block - 1::block]]).reshape((4, nb) + a.shape[2:])
+
+    def above(p, c):
+        return p > c if strict_descent else p >= c
+
+    cpos, all_entered = corners(entry), corners(entered).all(dim=0)
+    ref = cpos[0]
+    centre = torch.zeros((nb, 3), dtype=_F32, device=dirs.device)
+    sdepth = torch.zeros(nb, dtype=torch.int64, device=dirs.device)
+    agree = torch.ones(nb, dtype=torch.bool, device=dirs.device)
+    for _ in range(max_beam_depth):  # the corners' common spatial path
+        bits = above(cpos, centre[None])
+        same = (bits == bits[0:1]).all(dim=2).all(dim=0) & agree
+        step = (bits[0].to(_F32) * 2.0 - 1.0) * _pow2(-(sdepth + 1))[:, None]
+        centre = torch.where(same[:, None], centre + step, centre)
+        sdepth = torch.where(same, sdepth + 1, sdepth)
+        agree = same
+    sdepth = torch.where(all_entered, sdepth, 0)
+
+    node = torch.zeros(nb, dtype=torch.int64, device=dirs.device)
+    pos = torch.zeros_like(centre)
+    depth = torch.zeros_like(sdepth)
+    alive = torch.ones_like(agree)
+    marks = []
+    for _ in range(max_beam_depth):  # the pool along corner 0's path, above leaves
+        pb = above(ref, pos)
+        idx = node + pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
+        payload = pool[idx.clamp(0, n_pool - 1)] >> 4
+        ok = alive & (depth < sdepth) & (payload < VOXEL_OFFSET)
+        step = (pb.to(_F32) * 2.0 - 1.0) * _pow2(-(depth + 1))[:, None]
+        marks.append(torch.where(ok, idx, n_pool))
+        node = torch.where(ok, payload, node)
+        pos = torch.where(ok[:, None], pos + step, pos)
+        depth = torch.where(ok, depth + 1, depth)
+        alive = ok
+    visit_idx = (torch.stack(marks, dim=1) if marks
+                 else torch.zeros((nb, 0), dtype=torch.int64, device=dirs.device))
+
+    def upsample(a):
+        a = a.reshape((hb, 1, wb, 1) + tuple(a.shape[1:]))
+        return a.expand((hb, block, wb, block) + tuple(a.shape[4:])).reshape(
+            (h * w,) + tuple(a.shape[4:]))
+
+    r_index, r_pos, r_depth = upsample(node), upsample(pos), upsample(depth)
+    half = _pow2(-r_depth)[:, None]
+    if strict_descent:
+        in_cell = torch.all((entry > r_pos - half) & (entry <= r_pos + half), dim=1)
+    else:
+        in_cell = torch.all((entry >= r_pos - half) & (entry < r_pos + half), dim=1)
+    ok = in_cell & (r_depth > 0)
+    start = (torch.where(ok, r_index, 0).to(_I32), torch.where(ok[:, None], r_pos, 0.0),
+             torch.where(ok, r_depth, 0).to(_I32))
+    return start, visit_idx.to(_I32)
+
+
+def beam_start(words, origin, dirs, block=16, max_beam_depth=12, strict_descent=True):
+    """The beam pre-pass of JAX ``beam_start`` (tracer.py:2987): for each
+    ``block`` x ``block`` tile of the image ``dirs`` (f32[H, W, 3], from
+    ``origin`` f32[3]), the deepest node (at most ``max_beam_depth`` levels,
+    above leaves) whose cell holds the entry points of the tile's four
+    corner rays, and for each ray that node where its own entry point lies
+    in the node's cell, else the root.
+
+    Returns (start, beam_visit_idx): ``start`` = (node index int32[H*W],
+    centre f32[H*W, 3], depth int32[H*W]) in pixel order, ``trace``'s
+    ``start``; ``beam_visit_idx`` int32[tiles, max_beam_depth], the tiles
+    in row-major order, the interior slots each tile's descent entered,
+    padded with the pool's length. ``block`` must divide H and W. On a CUDA
+    device this launches kernel K11; on the CPU it is ``beam_start_plain``.
+    """
+    dev = dirs.device
+    _check_beam(words, origin, dirs, block, max_beam_depth)
+    if not kernels.uses_kernel(dev):
+        return beam_start_plain(words, origin, dirs, block, max_beam_depth, strict_descent)
+    h, w = dirs.shape[:2]
+    n, nb = h * w, (h // block) * (w // block)
+    tile_state = torch.empty((nb, 5), dtype=_I32, device=dev)
+    visit_idx = torch.empty((nb, max_beam_depth), dtype=_I32, device=dev)
+    start = (torch.empty(n, dtype=_I32, device=dev), torch.empty((n, 3), dtype=_F32, device=dev),
+             torch.empty(n, dtype=_I32, device=dev))
+    kernels.launch("beam_start", "ot_beam_start", dev, kernels.ptr(words), words.numel(),
+                   kernels.ptr(origin), kernels.ptr(dirs), h, w, block, max_beam_depth,
+                   int(strict_descent), kernels.ptr(tile_state), kernels.ptr(visit_idx),
+                   *(kernels.ptr(t) for t in start))
+    return start, visit_idx
+
+
+def beam_start_bytes(n: int, tiles: int, max_beam_depth: int, rows: int) -> int:
+    """Bytes K11 must move, each once: a direction in (12) and a start out
+    (20) a ray, the origin (12), ``max_beam_depth`` entries of
+    ``beam_visit_idx`` a tile and the ``rows`` 32-byte pool rows the tiles'
+    descents read."""
+    return 32 * n + 12 + 4 * tiles * max_beam_depth + 32 * rows
 
 
 def _brick_k(brick_k) -> int:
@@ -642,7 +946,7 @@ def _brick_k(brick_k) -> int:
 def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
                  warp_table=None, visits=None, max_steps=MAX_STEPS,
                  strict_descent=True, parent_restart=True, bricks=None, brick_k=4, *,
-                 image_width: int) -> torch.Tensor:
+                 image_width: int, warp_in_body=True) -> torch.Tensor:
     """bool[N]: whether each shadow ray of ``result`` (``shadow_rays``'s,
     from ``hit_pos + normal * 2.5e-6`` toward ``-normalize(sun_dir)``, active
     on hits, and under ``cull`` only on hits facing the sun) hits geometry.
@@ -650,10 +954,10 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
     ``image_width`` is the width of the image whose pixels ``result`` holds
     in order, which the kernel takes in 8x4 tiles as ``trace`` takes an
     image's dirs, or 0 for a batch in linear order. ``parent_restart``,
-    ``bricks`` and ``brick_k`` are ``trace``'s. On a CUDA device this
-    launches kernel K1 in its shadow
-    mode, which builds each ray from the result in its prologue and writes
-    only ``hit``; on the CPU it is ``shadow_rays`` and ``trace_plain``."""
+    ``bricks``, ``brick_k`` and ``warp_in_body`` are ``trace``'s. On a CUDA
+    device this launches kernel K1 in its shadow mode, which builds each
+    ray from the result in its prologue and writes only ``hit``; on the CPU
+    it is ``shadow_rays`` and ``trace_plain``."""
     dev = words.device
     n = result.hit.shape[0]
     kernels.check(result.hit, "hit", torch.bool, (n,), dev)
@@ -671,7 +975,7 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
         o, d, active = shadow_rays(result, sun_dir, cull)
         return trace_plain(words, o, d, active, max_steps, strict_descent, warp_table,
                            visits, parent_restart=parent_restart, bricks=bricks,
-                           brick_k=brick_k).hit
+                           brick_k=brick_k, warp_in_body=warp_in_body).hit
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     kernels.launch(
         "trace", "ot_trace_shadow", dev,
@@ -680,7 +984,7 @@ def trace_shadow(words, result: TraceResult, sun_dir=DEFAULT_SUN, cull=True,
         *(float(c) for c in neg_sun), int(cull), n, image_width, kernels.ptr(warp_table),
         table_mode, levels, int(strict_descent), int(not parent_restart), max_steps,
         _max_iters(max_steps, None), kernels.ptr(hit), kernels.ptr(visits),
-        kernels.ptr(bricks), _brick_k(brick_k),
+        kernels.ptr(bricks), _brick_k(brick_k), int(warp_in_body),
     )
     return hit
 
@@ -774,7 +1078,10 @@ def build_warp_table(words: torch.Tensor, levels: int = 6) -> torch.Tensor:
 
 
 def _neg_sun(sun_dir) -> np.ndarray:
-    """-normalize(sun) in f32, normalised as the JAX frame does."""
+    """-normalize(sun) in f32, normalised as the JAX frame does. A tensor
+    (JAX's callers pass the sun as an array) is read to the host first."""
+    if isinstance(sun_dir, torch.Tensor):
+        sun_dir = sun_dir.detach().cpu()
     sun = np.asarray(sun_dir, dtype=np.float32)
     return -(sun / np.sqrt(np.sum(sun * sun, dtype=np.float32)))
 
@@ -977,13 +1284,16 @@ def longest_trips(trace_capped, live: torch.Tensor, cap: int) -> int:
 
 def shade(result: TraceResult, shadow_hit=None, show_steps=False,
           sun_dir=DEFAULT_SUN, gamma=2.2, u8=False,
-          hits_visits=None) -> torch.Tensor:
+          hits_visits=None, block_order=None) -> torch.Tensor:
     """Colours f32[N, 3], or the encoded frame u8[N, 3] when ``u8``.
     ``hits_visits`` (int32[pool]) selects the hit-counter view: hits show
     ``min(visits[index], 15) / 15`` grey, the slot clamped into the pool as
     JAX's gather clamps it (``show_steps`` still wins, as in JAX
-    ``shade``). On a CUDA device this launches kernel K4; on the CPU it
-    is ``shade_plain`` (and ``encode_u8_plain``)."""
+    ``shade``). ``block_order`` = (H, W, block, morton) says that the
+    result's rays are in ``_pixel_to_block`` order of an H x W image; the
+    colours then come out in pixel order (K4 writes each pixel at its
+    place). On a CUDA device this launches kernel K4; on the CPU it is
+    ``shade_plain`` (and ``encode_u8_plain``)."""
     dev = result.hit.device
     n = result.hit.shape[0]
     kernels.check(result.hit, "hit", torch.bool, (n,), dev)
@@ -998,9 +1308,15 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
         kernels.check(hits_visits, "hits_visits", _I32, (None,), dev)
         if hits_visits.shape[0] == 0:
             raise ValueError("hits_visits is empty")
+    if block_order is not None:
+        bh, bw, block, morton = block_order
+        _block_perm(bh, bw, block, morton)
+        if bh * bw != n:
+            raise ValueError(f"block_order {block_order} does not hold {n} rays")
     if not kernels.uses_kernel(dev):
         img = shade_plain(result, shadow_hit, show_steps, sun_dir, gamma, hits_visits)
-        return encode_u8_plain(img) if u8 else img
+        img = encode_u8_plain(img) if u8 else img
+        return img if block_order is None else _block_to_pixel(img, *block_order)
     mode = 1 if show_steps else 2 if hits_visits is not None else 0
     out = torch.empty((n, 3), dtype=torch.uint8 if u8 else _F32, device=dev)
     s = _neg_sun(sun_dir)
@@ -1013,6 +1329,8 @@ def shade(result: TraceResult, shadow_hit=None, show_steps=False,
         kernels.ptr(result.index), kernels.ptr(hits_visits),
         0 if hits_visits is None else hits_visits.shape[0],
         kernels.ptr(encode_table(dev, gamma)), kernels.ptr(out), int(u8),
+        *((0, 0, 0) if block_order is None
+          else (block_order[1], block_order[2], int(bool(block_order[3])))),
     )
     return out
 
@@ -1101,15 +1419,105 @@ def overlay_hit_counts(visits: torch.Tensor, result: TraceResult) -> torch.Tenso
     return torch.where(counts > 0, counts, visits)
 
 
+_MODES = ("tiled", "staged", "beam")
+
+
+def _beam_morton(beam_iters) -> bool:
+    """Whether JAX's beam stage lays its tiles out in Morton order: a
+    cascade of more than one stage budget (tracer.py:1797, :1905-1913)."""
+    if isinstance(beam_iters, int):
+        return False
+    its = tuple(beam_iters)
+    if not its or not all(isinstance(i, int) for i in its):
+        raise ValueError(f"beam_iters must be an int or a sequence of ints, got {beam_iters}")
+    return len(its) > 1
+
+
+def _add_beam_marks(visits: torch.Tensor, visit_idx: torch.Tensor, flags: bool) -> None:
+    """JAX's scatter of ``beam_start``'s slots into the visits
+    (tracer.py:3541-3549, :3595-3598): +1 each, or under ``flags`` a set
+    1; the pool-length padding drops. The slots are interiors, so no
+    filled-leaf count is touched."""
+    marks = visit_idx.reshape(-1).long()
+    real = marks < visits.shape[0]
+    slots, ones = torch.where(real, marks, 0), real.to(_I32)
+    if flags:
+        visits.scatter_reduce_(0, slots, ones, reduce="amax")
+    else:
+        visits.index_add_(0, slots, ones)
+
+
+def _check_schedule(mode, h, w, warp_table, warp_levels, with_visits, show_hits,
+                    visit_flags, paged, bricks, beams, beam_iters, raw_result,
+                    pre_permuted, warp_in_body, shadow_seed, pack_pool, tile_size,
+                    max_steps) -> bool:
+    """JAX ``render_frame``'s checks of a named ``mode`` (tracer.py:3328-3398)
+    and ``trace_staged``'s (:1590-1593, :1790-1796, :1855-1856), in JAX's
+    order, and the port's own: a ``warp_levels`` beside the table must be
+    its levels, a Morton cascade needs a power-of-two block (JAX asserts
+    it), ``tile_size`` is None or a positive int. ``mode=None`` is the
+    port's frame, which takes none of the schedule's arguments that change
+    a result (``beams``, ``raw_result``, ``pre_permuted``,
+    ``warp_in_body=False``). Returns whether the beam stage is a Morton
+    cascade."""
+    if tile_size is not None and operator.index(tile_size) < 1:
+        raise ValueError(f"tile_size must be None or >= 1, got {tile_size}")
+    _check_warp_levels(warp_table, warp_levels)
+    morton = _beam_morton(beam_iters)
+    if mode is None:
+        if beams or raw_result or pre_permuted or not warp_in_body:
+            raise ValueError("beams, raw_result, pre_permuted and warp_in_body=False need "
+                             "a mode ('tiled', 'staged' or 'beam')")
+        if paged is not None and (with_visits or show_hits):
+            raise ValueError("paged excludes with_visits/show_hits")
+        return morton
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES} or None, got {mode!r}")
+    staged = mode in ("staged", "beam")
+    if warp_table is not None and not staged:
+        raise ValueError("warp_table requires mode='staged' or 'beam'")
+    if pre_permuted:
+        if mode != "beam":
+            raise ValueError("pre_permuted requires mode='beam'")
+        if morton:
+            raise ValueError("pre_permuted excludes morton beam cascades")
+    if paged is not None:
+        if not staged:
+            raise ValueError("paged requires mode='staged' or 'beam'")
+        if with_visits or show_hits:
+            raise ValueError("paged excludes with_visits/show_hits")
+    if shadow_seed and with_visits:
+        raise ValueError("shadow_seed excludes with_visits")
+    if visit_flags and not show_hits and not staged:
+        raise ValueError("visit_flags requires mode='staged' or 'beam'")
+    if mode == "beam":
+        bb = beams or 8
+        if h % bb or w % bb:
+            raise ValueError(f"beam block {bb} must divide {h}x{w}")
+        if morton:
+            _block_perm(h, w, bb, True)
+    if staged:
+        if max_steps > 1023:
+            raise ValueError("trace_staged packs steps/depth into 10 bits")
+        if mode == "beam" and max_steps > 127:
+            raise ValueError("beam mode packs steps into 7 bits")
+        if pack_pool and (bricks is not None or paged is not None):
+            raise ValueError("pack9 excludes bricks/paged")
+    return morton
+
+
 def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
                  show_steps=False, misc_bool=False, max_steps=MAX_STEPS,
                  warp_table=None, u8_image=False, with_visits=False,
                  show_hits=False, visit_flags=False, parent_restart=True, bricks=None,
-                 brick_k=4, paged=None, paged_old_of_new=None):
+                 brick_k=4, paged=None, paged_old_of_new=None, mode=None,
+                 tile_size=128 * 1024, beams=None, beam_iters=16, raw_result=False,
+                 pre_permuted=False, warp_levels=None, warp_in_body=True,
+                 fit_stages=True, shadow_seed=None, pack_pool=None):
     """Full frame: primary trace, shadow trace, shade (and u8 encode).
 
     ``origin`` f32[3] and ``dirs`` f32[H, W, 3] on the pool's device;
-    ``sun_dir`` three floats on the host.
+    ``sun_dir`` three floats on the host (or a tensor of them).
     Returns (image f32[H, W, 3] or u8[H, W, 3], TraceResult in pixel order,
     visits int32[pool] or None). The primary pass traces the image in tiles
     from one origin; the shadow pass (``trace_shadow``) builds
@@ -1134,32 +1542,77 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     result's ``index`` is mapped back to original slots, as JAX's
     (tracer.py:3531-3539). ``paged`` excludes ``with_visits`` and
     ``show_hits``, as in JAX.
+
+    The JAX frame's schedules. ``mode=None`` (the default) is the port's
+    frame as above. A named ``mode``, JAX's ``"tiled"``, ``"staged"`` or
+    ``"beam"``, raises JAX's ``ValueError``s for its combinations (a table,
+    ``visit_flags`` or ``paged`` only in staged or beam mode, and the rest
+    of ``_check_schedule``) and computes what JAX computes:
+
+    - ``beams`` = b in the tiled and staged modes (b dividing H and W, else
+      ignored, as in JAX) starts each ray's first descent at its b x b
+      tile's ``beam_start`` node and, under ``with_visits``, adds the
+      tiles' descents to the visits (+1 a slot, a set 1 under
+      ``visit_flags``), as JAX does; in beam mode b (default 8) is the
+      tile of the block order, which must divide H and W.
+    - In beam mode ``pre_permuted=True`` takes ``dirs`` in the block order
+      (``camera.generate_rays_device(block_major=b)`` reshaped to [H, W,
+      3]), and ``raw_result=True`` returns the TraceResult in the block
+      order (Morton within a tile under a ``beam_iters`` cascade), with the
+      image in pixel order either way: K1 traces the block order as a flat
+      batch, whose 32 consecutive rays of an 8-wide block are an 8x4 tile,
+      and K4 writes each pixel at its place.
+    - ``warp_in_body=False`` (staged or beam, with a table) reads the table
+      for each ray's first descent only, as JAX's ``trace_staged`` does, so
+      restarts go to the parent or the root and no step skips: both passes
+      go to ``trace``'s and ``trace_shadow``'s ``warp_in_body`` (K1's seed
+      forms).
+
+    JAX's tuning knobs ``tile_size``, ``beam_iters`` (but for the Morton
+    order of a raw result), ``fit_stages``, ``shadow_seed``, ``pack_pool``
+    and ``warp_levels`` (which must equal the table's levels) give outputs
+    that JAX holds bit-identical; they are validated as JAX validates them
+    and have no effect on the card. A mode's visits are the port's exact
+    ones: JAX's staged replays and beam lockstep change only magnitudes
+    that its adaptive thresholds do not read (``trace_staged``).
     """
-    if paged is not None and (with_visits or show_hits):
-        raise ValueError("paged excludes with_visits/show_hits")
-    if show_hits:
-        shadows, with_visits, visit_flags = False, True, False
     h, w = dirs.shape[:2]
     n = h * w
+    morton = _check_schedule(mode, h, w, warp_table, warp_levels, with_visits, show_hits,
+                             visit_flags, paged, bricks, beams, beam_iters, raw_result,
+                             pre_permuted, warp_in_body, shadow_seed, pack_pool, tile_size,
+                             max_steps)
+    if show_hits:
+        shadows, with_visits, visit_flags = False, True, False
     strict = not misc_bool
     gamma = 2.2 - 1.2 * misc_bool
     visits = None
     if with_visits:
         visits = torch.zeros(words.shape[0], dtype=_I32, device=words.device)
+    start = visit_idx = None
+    if mode in ("tiled", "staged") and beams and h % beams == 0 and w % beams == 0:
+        start, visit_idx = beam_start(words, origin, dirs, block=beams, strict_descent=strict)
+    order = None  # the block order of the primary rays
+    if mode == "beam" and (raw_result or pre_permuted):
+        order = (h, w, beams or 8, morton)
+        flat = dirs.reshape(n, 3)
+        rays = (flat if pre_permuted else _pixel_to_block(flat, *order)).contiguous()
+    else:
+        rays = dirs.contiguous()
     origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
-    result = trace(words, origins, dirs.contiguous(), max_steps=max_steps,
-                   strict_descent=strict, warp_table=warp_table, visits=visits,
-                   visit_flags=visit_flags, parent_restart=parent_restart,
-                   bricks=bricks, brick_k=brick_k, paged=paged)
+    kw = dict(max_steps=max_steps, strict_descent=strict, parent_restart=parent_restart,
+              bricks=bricks, brick_k=brick_k, warp_table=warp_table,
+              warp_in_body=warp_in_body)
+    result = trace(words, origins, rays, visits=visits, visit_flags=visit_flags, paged=paged,
+                   start=start, **kw)
     if with_visits and visit_flags:
         visits = overlay_hit_counts(visits, result)
     shadow_hit = None
     if shadows and not show_steps:
-        shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits,
-                                  warp_table=warp_table, visits=visits,
-                                  max_steps=max_steps, strict_descent=strict,
-                                  parent_restart=parent_restart, bricks=bricks,
-                                  brick_k=brick_k, image_width=w)
+        shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits, visits=visits,
+                                  image_width=0 if order else w, **kw)
+    if with_visits and visit_idx is not None:
+        _add_beam_marks(visits, visit_idx, visit_flags)
     if paged is not None and paged_old_of_new is not None:
         # Hit slots back to the original pool's (the rest of the result is
         # slot-independent).
@@ -1168,5 +1621,127 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
         result = result._replace(index=torch.where(result.index >= 0, slot, result.index))
     img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
                 sun_dir=sun_dir, gamma=gamma, u8=u8_image,
-                hits_visits=visits if show_hits else None)
+                hits_visits=visits if show_hits else None, block_order=order)
+    if order is not None and not raw_result:
+        result = TraceResult(*(_block_to_pixel(f, *order) for f in result))
     return img.reshape(h, w, 3), result, visits
+
+
+def _pack_result(result: TraceResult, active: torch.Tensor) -> torch.Tensor:
+    """JAX ``trace_staged``'s result record (tracer.py:2135-2174), int32[N,
+    8] rows [meta2, index, hit_pos bits, word, 0, 0] with meta2 = steps |
+    depth << 10 | active << 20 | hit << 21 | forced << 22 | normal code <<
+    23 (each normal component + 1, base 3). ``active``: rays still active
+    when the loop ended."""
+    nrm = result.normal.to(_I32) + 1
+    meta2 = (result.steps | (result.depth << 10) | (active.to(_I32) << 20)
+             | (result.hit.to(_I32) << 21) | (result.forced.to(_I32) << 22)
+             | ((nrm[:, 0] + 3 * nrm[:, 1] + 9 * nrm[:, 2]) << 23))
+    zero = torch.zeros_like(meta2)
+    return torch.stack([meta2, result.index, *result.hit_pos.view(_I32).unbind(1),
+                        result.word, zero, zero], dim=1)
+
+
+def _record_fields(result: TraceResult, slim: bool) -> TraceResult:
+    """The TraceResult JAX ``trace_staged`` reads back from its record
+    (tracer.py:2760-2782), field by field: ``steps`` and ``depth`` in 10
+    bits each (a forced ray's ``max_steps + 1`` steps carry into ``depth``'s
+    bits at 1023), the normal from its code (components in {-1, 0, 1}, so
+    only a -0.0 becomes +0.0); a slim record carries no index (-1),
+    position or word (0)."""
+    result = result._replace(steps=result.steps & 1023,
+                             depth=(result.depth | (result.steps >> 10)) & 1023,
+                             normal=result.normal + 0.0)
+    if slim:
+        result = result._replace(index=torch.full_like(result.index, -1),
+                                 hit_pos=torch.zeros_like(result.hit_pos),
+                                 word=torch.zeros_like(result.word))
+    return result
+
+
+def trace_staged(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
+                 strict_descent=True, with_visits=False, parent_restart=True,
+                 schedule=None, backstop_size=None, unroll=1, tail_unroll=8,
+                 start=None, warp_table=None, warp_levels=None, warp_in_body=False,
+                 fuse_sibling=None, entry_width=None, beam_shape=None, beam_iters=16,
+                 beam_unroll=1, beam_raw=False, beam_pre_permuted=False, beam_aux=False,
+                 bricks=None, brick_k=4, paged=None, slim_result=False, rebeam_lanes=64,
+                 rebeam_k=0, beam_sparse_skip=None, tail_fine=None, tail_burst=64,
+                 fit_stages=True, pack_pool=None, beam_pack=False, visit_flags=False):
+    """JAX ``trace_staged`` (tracer.py:1477): its staged-compaction
+    wavefront's results, from one ``trace`` (K1 on a CUDA device).
+
+    Returns JAX's tuple: (TraceResult, visits int32[pool] or None), and
+    under ``beam_aux`` the result record as a third element (int32[N, 8]
+    rows [meta2, index, hit_pos bits, word, 0, 0], in the block order under
+    ``beam_shape``). The result holds what JAX reads back from that record
+    (``_record_fields``): ``steps`` and ``depth`` in 10 bits each, the
+    normal from its code; under ``slim_result`` with ``index`` -1 and
+    ``hit_pos`` and ``word`` 0.
+
+    What changes a result, as in JAX: ``start`` (``trace``'s); a
+    ``warp_table``, which by default (``warp_in_body=False``) sets only each
+    ray's first descent and is in the loop only under ``warp_in_body``;
+    ``beam_shape`` = (H, W, block), under which the rays are pixels of an
+    H x W image: ``beam_pre_permuted`` takes them in the block order of
+    ``_pixel_to_block`` (Morton within a tile under a ``beam_iters``
+    cascade), and ``beam_raw`` and the record keep the block order; and
+    ``active_init``, ``bricks``, ``brick_k``, ``paged``, ``visit_flags``.
+
+    ``schedule``, ``backstop_size``, ``unroll``, ``tail_unroll``,
+    ``fuse_sibling``, ``entry_width``, ``beam_iters``, ``beam_unroll``,
+    ``rebeam_lanes``, ``rebeam_k``, ``beam_sparse_skip``, ``tail_fine``,
+    ``tail_burst``, ``fit_stages``, ``pack_pool`` and ``beam_pack`` order
+    JAX's work, whose hits JAX holds bit-identical to ``trace``; JAX's
+    errors for them are raised here too (``max_steps`` over 1023, over 127
+    in beam mode, ``slim_result`` beside ``beam_aux`` or ``bricks``, a
+    ``beam_shape`` that does not tile the rays or beside ``start`` or
+    ``entry_width``, ``pack_pool`` beside ``bricks`` or ``paged``), and
+    otherwise they have no effect. The visits are ``trace``'s: JAX replays
+    the rays that overflow a stage, which raises only interior and
+    empty-leaf magnitudes (tracer.py:1578-1586), so its filled-leaf counts
+    and interior zero-set equal these.
+    """
+    n = dirs.shape[0]
+    if max_steps > 1023:
+        raise ValueError("trace_staged packs steps/depth into 10 bits")
+    if slim_result and (beam_aux or bricks is not None):
+        raise ValueError("slim_result excludes beam_aux/bricks")
+    if pack_pool and (bricks is not None or paged is not None):
+        raise ValueError("pack9 excludes bricks/paged")
+    _check_warp_levels(warp_table, warp_levels)
+    order = None
+    if beam_shape is not None:
+        bh, bw, bb = beam_shape
+        if bh * bw != n or bh % bb or bw % bb:
+            raise ValueError(f"beam_shape {beam_shape} incompatible with {n}")
+        if start is not None or entry_width is not None:
+            raise ValueError("beam_shape excludes start/entry_width")
+        if max_steps > 127:
+            raise ValueError("beam mode packs steps into 7 bits")
+        order = (bh, bw, bb, _beam_morton(beam_iters))
+        _block_perm(*order)
+        if not beam_pre_permuted:
+            if origins.stride(0) != 0:
+                origins = _pixel_to_block(origins, *order).contiguous()
+            dirs = _pixel_to_block(dirs, *order).contiguous()
+            if active_init is not None:
+                active_init = _pixel_to_block(active_init, *order).contiguous()
+    visits = (torch.zeros(words.shape[0], dtype=_I32, device=words.device)
+              if with_visits else None)
+    result = trace(words, origins, dirs, active_init, max_steps, strict_descent, warp_table,
+                   visits, visit_flags, parent_restart, bricks=bricks, brick_k=brick_k,
+                   paged=paged, start=start, unroll=unroll, fuse_sibling=bool(fuse_sibling),
+                   warp_in_body=warp_in_body)
+    aux = ()
+    if beam_aux:
+        live = _entry_points(origins, dirs)[1]
+        if active_init is not None:
+            live = live & active_init
+        aux = (_pack_result(result, live & ~result.hit & (result.depth == 0)),)
+    result = _record_fields(result, slim_result)
+    if order is not None and not beam_raw:
+        result = TraceResult(*(_block_to_pixel(f, *order) for f in result))
+    return (result, visits) + aux
+
+

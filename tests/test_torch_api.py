@@ -39,8 +39,6 @@ from octree_tracer_tpu_torch.render import skip, tracer
 JAX_DIR = os.path.dirname(os.path.abspath(octree_tracer_tpu.__file__))
 JAX_MODULES = sorted((m.name.split(".", 1)[1], m.ispkg) for m in pkgutil.walk_packages(
     octree_tracer_tpu.__path__, "octree_tracer_tpu."))
-_TPU_LAYOUT = "TPU scheduling, held bit-identical to plain trace by its own contract"
-
 # Modules of the JAX package the port has no counterpart of.
 MODULES_OUT = {
     "native.libotcore": "the JAX package's build of the host engine (a shared library, "
@@ -50,38 +48,19 @@ MODULES_OUT = {
 NAMES_OUT = {
     ("utils", "xla_trace"): "an XLA profiler span; the port has torch_trace",
     ("utils.timing", "xla_trace"): "an XLA profiler span; the port has torch_trace",
-    ("adaptive", "pad_patches"): "bucketed patch padding for XLA's static shapes",
-    ("adaptive.feedback", "pad_patches"): "bucketed patch padding for XLA's static shapes",
-    ("adaptive.feedback", "fast_nonzero"): "TPU compaction ranks",
-    ("render.tracer", "BIG_POOL_WORDS"): "a TPU gather byte class",
-    ("render.tracer", "PACK_POOL_WORDS"): "the pack9 row layout's threshold",
-    ("render.tracer", "trace_staged"): "staged compaction: " + _TPU_LAYOUT,
-    ("render.tracer", "beam_start"): "lockstep beams: " + _TPU_LAYOUT,
-    ("render.tracer", "fast_ranks"): "TPU compaction ranks",
-    ("render.tracer", "fast_nonzero"): "TPU compaction ranks",
 }
-_LAYOUT_KW = {"start", "unroll", "fuse_sibling"}
-# (module, function) -> parameters left out: the TPU layout keywords, and the
-# port's own forms of the same arguments (the value says which).
+# (module, function) -> parameters left out: the port's own forms of the
+# same arguments (the value says which).
 PARAMS_OUT = {
     ("render.tracer", "trace"): dict(
-        {k: _TPU_LAYOUT for k in _LAYOUT_KW},
         with_visits="the port marks a caller's visits tensor in place, where JAX "
-                    "returns (result, visits)",
-        warp_levels="read from the table's length (tracer.warp_table_levels)"),
-    ("render.tracer", "render_frame"): {k: _TPU_LAYOUT for k in (
-        "tile_size", "beams", "mode", "beam_iters", "raw_result", "warp_levels",
-        "warp_in_body", "fit_stages", "pre_permuted", "shadow_seed", "pack_pool")},
+                    "returns (result, visits)"),
     ("render.tracer", "shade"): {
         "words": "the port's shade reads the hit words from the result",
         "show_hits_visits": "the port's hits_visits"},
-    ("render.camera", "generate_rays_device"): {"block_major": _TPU_LAYOUT},
     ("parallel.mesh", "make_mesh"): {
         "devices": "a torch.distributed group, not a JAX device list (group=)",
         "axis": "the port's mesh has the one axis 'rays'"},
-    ("parallel.mesh", "render_frame_sharded"): {
-        k: "render_frame's " + _TPU_LAYOUT for k in ("tile_size", "mode", "beams")},
-    ("app.headless", "render_scene"): {"tile_size": _TPU_LAYOUT},
 }
 # The JAX ShardedSession takes **kw for its Session; the port names the same
 # keywords explicitly, so its constructor is checked as any other.

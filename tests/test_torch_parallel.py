@@ -57,6 +57,7 @@ def groups():
     ``("frames", n)`` or ``"sessions"``."""
     with ThreadPoolExecutor(max_workers=len(SIZES) + 1) as pool:
         runs = {("frames", n): pool.submit(run_ranks, R.frames, n, "cpu") for n in SIZES}
+        runs["schedules"] = pool.submit(run_ranks, R.schedule_frames, 2, "cpu")
         runs["sessions"] = pool.submit(run_ranks, R.session_lockstep, SESSION_RANKS, "cpu",
                                        _world_chunks())
         yield lambda key: runs[key].result()
@@ -121,6 +122,42 @@ def test_sharded_frame_equals_port(groups, n, case, mode):
         if mode != "flags":  # counts sum to the unsharded counts
             np.testing.assert_array_equal(s_visits, visits)
     assert res["hit"].any() and not res["hit"].all()
+
+
+@pytest.mark.parametrize("case,mode", list(R.SCHEDULE_FRAMES),
+                         ids=[f"{c}-{m}" for c, m in R.SCHEDULE_FRAMES])
+def test_sharded_schedule_frames_equal_port(groups, case, mode):
+    """JAX's ``mode``, ``beams`` and ``tile_size`` through the sharded frame
+    on 2 ranks (16 rows each, whole 8x8 tiles): each rank's image and
+    result equal the port's unsharded ``render_frame`` with the same
+    keywords, and the visits the sum of its row blocks' frames, which for
+    counts is the unsharded frame's (a row block's tiles are the frame's)."""
+    scene, w, h, cam, table = R.FRAME_CASES[case]
+    kw = R.SCHEDULE_FRAMES[case, mode]
+    words = state.u32_to_device(R.SCENES[scene](), "cpu")
+    tab = state.table_to_device(_table(scene), "cpu") if table else None
+    origin, dirs = R.rays(cam, w, h)
+
+    def frame(d):
+        img, res, visits = tracer.render_frame(words, origin, d.contiguous(), u8_image=True,
+                                               warp_table=tab, **kw)
+        return img.numpy(), tracer.to_numpy(res), None if visits is None else visits.numpy()
+
+    img, res, visits = frame(dirs)
+    blocks = [frame(dirs[r * h // 2:(r + 1) * h // 2]) for r in range(2)]
+    for rank, out in enumerate(groups("schedules")):
+        s_img, s_res, s_visits = out[case, mode]
+        np.testing.assert_array_equal(s_img, img, err_msg=f"rank {rank}")
+        for field in res:
+            np.testing.assert_array_equal(s_res[field], res[field],
+                                          err_msg=f"rank {rank}: {field}")
+        if visits is None:
+            assert s_visits is None
+            continue
+        np.testing.assert_array_equal(s_visits, sum(b[2] for b in blocks))
+        if not kw.get("visit_flags"):
+            np.testing.assert_array_equal(s_visits, visits)
+    assert res["hit"].any()
 
 
 @pytest.mark.parametrize("n", [2, 4])

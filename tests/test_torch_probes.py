@@ -509,3 +509,34 @@ def test_k1_counters_needs_the_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert k1_counters.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+_START_PTXAS = _PTXAS + """ptxas info    : Function properties for _ZN12_GLOBAL__N_118trace_start_kernelILb1ELi2ELi0ELb0ELb0EEEvNS_9TraceArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117trace_seed_kernelILb1ELi1ELb1ELb0EEEvNS_9TraceArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113raygen_kernelENS_4Mat4EiiPfS1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 34 registers, used 0 barriers
+"""
+
+
+def test_k1_registers_forms_and_compare():
+    """The cross-tree register check's host side: K1's forms by kernel and
+    flags (the start and seed forms apart, other kernels left out), and the shared
+    forms that differ between two trees' reports."""
+    from octree_tracer_tpu_torch.probes import k1_registers as kr
+
+    base, new = kr.forms(_PTXAS), kr.forms(_START_PTXAS)
+    assert base["trace_kernel<1,0,1,0,1,0>"] == (58, 0, 0)
+    assert base["trace_kernel<0,0,0,1,0,1>"] == (49, 4, 8)
+    assert len(base) == 4 and len(new) == 6
+    assert new["trace_start_kernel<1,2,0,0,0>"] == (48, 0, 0)
+    assert new["trace_seed_kernel<1,1,1,0>"] == (40, 0, 0)
+    assert kr.form("_ZN12_GLOBAL__N_113raygen_kernelENS_4Mat4EiiPfS1_") is None
+    assert kr.compare(base, new) == ({}, ["trace_seed_kernel<1,1,1,0>",
+                                          "trace_start_kernel<1,2,0,0,0>"])
+    moved = dict(new, **{"trace_kernel<1,2,0,0,0,0>": (47, 0, 0)})
+    assert kr.compare(base, moved)[0] == {"trace_kernel<1,2,0,0,0,0>": ((46, 0, 0), (47, 0, 0))}

@@ -101,6 +101,35 @@ def frames(mesh) -> dict:
     return {"frames": out, "uneven": uneven, "traffic": mesh.traffic}
 
 
+# The JAX frame's schedules through the sharded frame: (case, mode) ->
+# render_frame_sharded's keywords.
+SCHEDULE_FRAMES = {
+    ("random6-32x32-inside", "tiled-beams8"): dict(mode="tiled", beams=8, with_visits=True),
+    ("random6-32x32-inside", "staged-beams8"): dict(mode="staged", beams=8, with_visits=True),
+    ("random6-32x32-inside-L7", "staged-beams8-flags"): dict(
+        mode="staged", beams=8, with_visits=True, visit_flags=True),
+    ("random6-32x32-inside-L7", "beam-flags"): dict(mode="beam", with_visits=True,
+                                                     visit_flags=True),
+    ("shell6-32x32-bench", "beam"): dict(mode="beam", tile_size=None),
+}
+
+
+def schedule_frames(mesh) -> dict:
+    """Each ``SCHEDULE_FRAMES`` call through ``render_frame_sharded``."""
+    torch.set_num_threads(1)
+    out = {}
+    for (case, mode), kw in SCHEDULE_FRAMES.items():
+        scene, w, h, cam, table = FRAME_CASES[case]
+        words = state.u32_to_device(SCENES[scene](), "cpu")
+        tab = skip.build_warp_skip_table(words, LEVELS) if table else None
+        origin, dirs = rays(cam, w, h)
+        img, res, visits = render_frame_sharded(mesh, words, origin, dirs, u8_image=True,
+                                                warp_table=tab, **kw)
+        out[case, mode] = (img.numpy(), tracer.to_numpy(res),
+                           None if visits is None else visits.numpy())
+    return out
+
+
 def session_lockstep(mesh, world_chunks) -> dict:
     """Each configuration of ``SESSION_CONFIGS`` for ``SESSION_STEPS`` steps,
     turning at ``SESSION_TURN``; rank 0 streams from ``world_chunks``. Per
