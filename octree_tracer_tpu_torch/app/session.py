@@ -39,6 +39,7 @@ from ..adaptive import engine, feedback
 from ..core.octree import Octree, node_depth
 from ..render import camera, skip, tracer
 from ..state import u32_to_device
+from ..utils import timing
 from . import native_engine
 
 DEFAULT_POOL_CAPACITY = 10_000_000  # nodes
@@ -160,15 +161,16 @@ class Session:
         self.octree.drain_patches()
 
     def _push_patches(self):
-        idx, vals = self.octree.drain_patches()
-        if idx.size == 0:
-            return 0
-        if idx.size > MAX_PATCH_WORDS or len(self.octree) > self.device_words.shape[0]:
-            self._full_upload()  # too many patches, or the pool left its bucket
+        with timing.span("session.patches"):
+            idx, vals = self.octree.drain_patches()
+            if idx.size == 0:
+                return 0
+            if idx.size > MAX_PATCH_WORDS or len(self.octree) > self.device_words.shape[0]:
+                self._full_upload()  # too many patches, or the pool left its bucket
+                return idx.size
+            self._patch_pool(idx, vals)
+            self._invalidate_warp(idx)
             return idx.size
-        self._patch_pool(idx, vals)
-        self._invalidate_warp(idx)
-        return idx.size
 
     def _patch_pool(self, idx: np.ndarray, vals: np.ndarray) -> None:
         self.device_words = feedback.apply_patches(self.device_words, idx, vals)
@@ -223,11 +225,13 @@ class Session:
 
     def _build_table(self, combined: bool) -> None:
         build = skip.build_warp_skip_table if combined else tracer.build_warp_table
-        self._warp_table = build(self.device_words, WARP_LEVELS)
+        with timing.span("session.warp_build"):
+            self._warp_table = build(self.device_words, WARP_LEVELS)
 
     def _rebuild_skip_half(self) -> None:
         levels = tracer.warp_table_levels(self._warp_table)
-        self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
+        with timing.span("session.skip_rebuild"):
+            self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
 
     def _auto_warp(self, adaptive: bool):
         """The frame's warp table, or None: pools below
@@ -272,11 +276,12 @@ class Session:
         refreshing the table; sets the counted-frame state ``update``
         reads."""
         s = self.settings
-        _, cam_inv = camera.camera_matrices(self.character.pos, self.character.look,
-                                            s.fov, self.width, self.height)
-        adaptive = not s.pause_adaptive and (
-            s.feedback_every <= 1 or self.frame_count % s.feedback_every == 0)
-        warp = self._auto_warp(adaptive)
+        with timing.span("session.plan"):
+            _, cam_inv = camera.camera_matrices(self.character.pos, self.character.look,
+                                                s.fov, self.width, self.height)
+            adaptive = not s.pause_adaptive and (
+                s.feedback_every <= 1 or self.frame_count % s.feedback_every == 0)
+            warp = self._auto_warp(adaptive)
         self._frame_warped = adaptive and warp is not None
         # The pool the frame reads; patches replace device_words, not this.
         self._frame_words = self.device_words
@@ -289,11 +294,12 @@ class Session:
     def render(self):
         """Render one frame; returns (image u8[H, W, 3], TraceResult in
         pixel order), both on the session's device."""
-        cam_inv, warp, args = self._plan_frame()
-        origin, dirs = camera.generate_rays_device(cam_inv, self.width, self.height,
-                                                   self.device)
-        img, result, visits = tracer.render_frame(
-            self._frame_words, origin, dirs, u8_image=True, warp_table=warp, **args)
+        with timing.span("session.render"):
+            cam_inv, warp, args = self._plan_frame()
+            origin, dirs = camera.generate_rays_device(cam_inv, self.width, self.height,
+                                                       self.device)
+            img, result, visits = tracer.render_frame(
+                self._frame_words, origin, dirs, u8_image=True, warp_table=warp, **args)
         self._last_visits = visits
         return img, result
 
@@ -302,15 +308,21 @@ class Session:
         counted frame only dispatches candidate selection; the previous
         counted frame's readback, host engine and patch upload run here
         first."""
+        with timing.span("session.update"):
+            return self._update()
+
+    def _update(self):
         s = self.settings
         stats = None
         freed_now = np.zeros(0, dtype=np.int64)
         if self._pending_feedback is not None:
             packed, ready, sel_offset, sel_m, caps, stale = self._pending_feedback
             self._pending_feedback = None
-            if ready is not None:
-                ready.synchronize()
-            stats = self._apply_feedback(packed.numpy(), sel_offset, sel_m, caps, stale)
+            with timing.span("session.readback_wait"):
+                if ready is not None:
+                    ready.synchronize()
+                packed = packed.numpy()
+            stats = self._apply_feedback(packed, sel_offset, sel_m, caps, stale)
             # Slots the batch just applied freed: this frame's visits were
             # counted before it, so candidates landing there are stale.
             freed_now = self._last_freed
@@ -318,37 +330,39 @@ class Session:
             self.frame_count += 1
             return stats or dict(_NO_STATS)
 
-        # Select against the current pool (post-apply) when it kept its
-        # bucket, else against the frame's pool.
-        sel_words = self.device_words
-        if sel_words.shape != self._frame_words.shape:
-            sel_words = self._frame_words
-        visits = self._last_visits
-        if self._frame_warped:
-            # The exact interior zero-set of a frame that rode the table,
-            # closed over the tree the frame was traced on.
-            visits = feedback.propagate_visits(self._frame_words, visits,
-                                               passes=self.octree.max_depth + 1)
-        packed = feedback.select_candidates_packed(
-            sel_words, visits, min(len(self.octree), int(sel_words.shape[0])),
-            sub_cap=s.sub_cap, unsub_cap=s.unsub_cap, offset=self._sel_offset)
-        self._last_visits = None
-        sel_m = int(sel_words.shape[0])
-        caps = (s.sub_cap, s.unsub_cap)
-        if s.deferred_feedback:
+        with timing.span("session.select"):
+            # Select against the current pool (post-apply) when it kept its
+            # bucket, else against the frame's pool.
+            sel_words = self.device_words
+            if sel_words.shape != self._frame_words.shape:
+                sel_words = self._frame_words
+            visits = self._last_visits
+            if self._frame_warped:
+                # The exact interior zero-set of a frame that rode the table,
+                # closed over the tree the frame was traced on.
+                visits = feedback.propagate_visits(self._frame_words, visits,
+                                                   passes=self.octree.max_depth + 1)
+            packed = feedback.select_candidates_packed(
+                sel_words, visits, min(len(self.octree), int(sel_words.shape[0])),
+                sub_cap=s.sub_cap, unsub_cap=s.unsub_cap, offset=self._sel_offset)
             ready = None
-            if packed.is_cuda:
+            if s.deferred_feedback and packed.is_cuda:
                 host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
                 host.copy_(packed, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record(torch.cuda.current_stream(self.device))
                 packed = host
+        self._last_visits = None
+        sel_m = int(sel_words.shape[0])
+        caps = (s.sub_cap, s.unsub_cap)
+        if s.deferred_feedback:
             self._pending_feedback = (packed, ready, self._sel_offset, sel_m, caps,
                                       freed_now)
             self.frame_count += 1
             return stats or dict(_NO_STATS)
-        now = self._apply_feedback(packed.cpu().numpy(), self._sel_offset, sel_m, caps,
-                                   freed_now)
+        with timing.span("session.readback_wait"):
+            packed = packed.cpu().numpy()
+        now = self._apply_feedback(packed, self._sel_offset, sel_m, caps, freed_now)
         if stats:  # a pending batch applied this step too
             now = {k: stats[k] + now[k] for k in now}
         self.frame_count += 1
@@ -360,36 +374,39 @@ class Session:
         ``sel_offset``, ``m`` and ``caps`` are the selection's rotation
         offset, index modulus and caps; ``stale`` the slots freed since its
         visits were counted, whose candidates no longer name live nodes."""
-        sub_cap, unsub_cap = caps
-        sub_n, unsub_n = int(packed[0]), int(packed[1])
-        sub_idx = packed[2: 2 + min(sub_n, sub_cap)]
-        unsub_idx = packed[2 + sub_cap: 2 + sub_cap + min(unsub_n, unsub_cap)]
+        with timing.span("session.engine"):
+            sub_cap, unsub_cap = caps
+            sub_n, unsub_n = int(packed[0]), int(packed[1])
+            sub_idx = packed[2: 2 + min(sub_n, sub_cap)]
+            unsub_idx = packed[2 + sub_cap: 2 + sub_cap + min(unsub_n, unsub_cap)]
+            timing.count("engine.sub_read", sub_idx.size)
 
-        # On cap overflow, move the window just past the last candidate
-        # consumed (stale ones count: they were looked at).
-        def _consumed(idx, count, cap):
-            if count <= cap or idx.size == 0:
-                return 0
-            return (int(idx[-1]) - sel_offset) % m + 1
-        adv = max(_consumed(sub_idx, sub_n, sub_cap),
-                  _consumed(unsub_idx, unsub_n, unsub_cap))
-        if adv:
-            self._sel_offset = (sel_offset + adv) % m
+            # On cap overflow, move the window just past the last candidate
+            # consumed (stale ones count: they were looked at).
+            def _consumed(idx, count, cap):
+                if count <= cap or idx.size == 0:
+                    return 0
+                return (int(idx[-1]) - sel_offset) % m + 1
+            adv = max(_consumed(sub_idx, sub_n, sub_cap),
+                      _consumed(unsub_idx, unsub_n, unsub_cap))
+            if adv:
+                self._sel_offset = (sel_offset + adv) % m
 
-        if stale.size:
-            keep_sub = ~np.isin(sub_idx, stale)
-            keep_unsub = ~np.isin(unsub_idx, stale)
-            self.stale_dropped += int((~keep_sub).sum() + (~keep_unsub).sum())
-            sub_idx, unsub_idx = sub_idx[keep_sub], unsub_idx[keep_unsub]
+            if stale.size:
+                keep_sub = ~np.isin(sub_idx, stale)
+                keep_unsub = ~np.isin(unsub_idx, stale)
+                self.stale_dropped += int((~keep_sub).sum() + (~keep_unsub).sum())
+                sub_idx, unsub_idx = sub_idx[keep_sub], unsub_idx[keep_unsub]
 
-        if self.use_native:
-            subdivided, _ = native_engine.process_subdivision(sub_idx, self.octree,
-                                                              self.world)
-            collapsed, _ = native_engine.process_unsubdivision(unsub_idx, self.octree,
-                                                               self.world)
-        else:
-            subdivided = engine.process_subdivision(sub_idx, self.octree, self.world)
-            collapsed = engine.process_unsubdivision(unsub_idx, self.octree, self.world)
+            if self.use_native:
+                subdivided, _ = native_engine.process_subdivision(sub_idx, self.octree,
+                                                                  self.world)
+                collapsed, _ = native_engine.process_unsubdivision(unsub_idx, self.octree,
+                                                                   self.world)
+            else:
+                subdivided = engine.process_subdivision(sub_idx, self.octree, self.world)
+                collapsed = engine.process_unsubdivision(unsub_idx, self.octree, self.world)
+            timing.count("engine.subdivided", subdivided)
         patched = self._push_patches()
         if (collapsed and self._warp_table is not None and not self._warp_dirty
                 and not self._skip_stale

@@ -19,6 +19,7 @@ import torch
 
 from .. import kernels
 from ..state import div_scalar
+from ..utils import timing
 
 
 def proj_matrix(fov_deg: float, aspect_h_over_w: float) -> np.ndarray:
@@ -161,16 +162,17 @@ def generate_rays_device(camera_inverse, width: int, height: int, device="cuda",
     a CPU tensor costs no copy to the card and no wait. A CUDA tensor is
     accepted too, at the price of one device-to-host read, which waits for
     the stream; the port's callers pass NumPy."""
-    device = kernels.resolve_device(device)
-    block = _check_block(width, height, block_major)
-    if not kernels.uses_kernel(device):
-        ci = torch.as_tensor(camera_inverse).to(device)
-        kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
-        return generate_rays_device_plain(ci, width, height, block)
-    args = _raygen_args(camera_inverse)
-    origin = torch.empty(3, dtype=torch.float32, device=device)
-    shape = (height * width, 3) if block else (height, width, 3)
-    dirs = torch.empty(shape, dtype=torch.float32, device=device)
-    kernels.launch("raygen", "ot_raygen", device, *args, width, height, block,
-                   kernels.ptr(origin), kernels.ptr(dirs))
-    return origin, dirs
+    with timing.span("render.raygen"):
+        device = kernels.resolve_device(device)
+        block = _check_block(width, height, block_major)
+        if not kernels.uses_kernel(device):
+            ci = torch.as_tensor(camera_inverse).to(device)
+            kernels.check(ci, "camera_inverse", torch.float32, (4, 4))
+            return generate_rays_device_plain(ci, width, height, block)
+        args = _raygen_args(camera_inverse)
+        origin = torch.empty(3, dtype=torch.float32, device=device)
+        shape = (height * width, 3) if block else (height, width, 3)
+        dirs = torch.empty(shape, dtype=torch.float32, device=device)
+        kernels.launch("raygen", "ot_raygen", device, *args, width, height, block,
+                       kernels.ptr(origin), kernels.ptr(dirs))
+        return origin, dirs

@@ -64,6 +64,7 @@ import torch
 from .. import kernels
 from ..core.voxel import VOXEL_OFFSET
 from ..state import div_scalar, narrow_u32, widen_u32
+from ..utils import timing
 from .skip import decode_skip
 
 MAX_STEPS = 100
@@ -1576,55 +1577,59 @@ def render_frame(words, origin, dirs, sun_dir=DEFAULT_SUN, shadows=True,
     ones: JAX's staged replays and beam lockstep change only magnitudes
     that its adaptive thresholds do not read (``trace_staged``).
     """
-    h, w = dirs.shape[:2]
-    n = h * w
-    morton = _check_schedule(mode, h, w, warp_table, warp_levels, with_visits, show_hits,
-                             visit_flags, paged, bricks, beams, beam_iters, raw_result,
-                             pre_permuted, warp_in_body, shadow_seed, pack_pool, tile_size,
-                             max_steps)
-    if show_hits:
-        shadows, with_visits, visit_flags = False, True, False
-    strict = not misc_bool
-    gamma = 2.2 - 1.2 * misc_bool
-    visits = None
-    if with_visits:
-        visits = torch.zeros(words.shape[0], dtype=_I32, device=words.device)
-    start = visit_idx = None
-    if mode in ("tiled", "staged") and beams and h % beams == 0 and w % beams == 0:
-        start, visit_idx = beam_start(words, origin, dirs, block=beams, strict_descent=strict)
-    order = None  # the block order of the primary rays
-    if mode == "beam" and (raw_result or pre_permuted):
-        order = (h, w, beams or 8, morton)
-        flat = dirs.reshape(n, 3)
-        rays = (flat if pre_permuted else _pixel_to_block(flat, *order)).contiguous()
-    else:
-        rays = dirs.contiguous()
-    origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
-    kw = dict(max_steps=max_steps, strict_descent=strict, parent_restart=parent_restart,
-              bricks=bricks, brick_k=brick_k, warp_table=warp_table,
-              warp_in_body=warp_in_body)
-    result = trace(words, origins, rays, visits=visits, visit_flags=visit_flags, paged=paged,
-                   start=start, **kw)
-    if with_visits and visit_flags:
-        visits = overlay_hit_counts(visits, result)
-    shadow_hit = None
-    if shadows and not show_steps:
-        shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits, visits=visits,
-                                  image_width=0 if order else w, **kw)
-    if with_visits and visit_idx is not None:
-        _add_beam_marks(visits, visit_idx, visit_flags)
-    if paged is not None and paged_old_of_new is not None:
-        # Hit slots back to the original pool's (the rest of the result is
-        # slot-independent).
-        old = torch.as_tensor(paged_old_of_new, device=words.device)
-        slot = old[result.index.clamp(0, old.shape[0] - 1).long()].to(_I32)
-        result = result._replace(index=torch.where(result.index >= 0, slot, result.index))
-    img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
-                sun_dir=sun_dir, gamma=gamma, u8=u8_image,
-                hits_visits=visits if show_hits else None, block_order=order)
-    if order is not None and not raw_result:
-        result = TraceResult(*(_block_to_pixel(f, *order) for f in result))
-    return img.reshape(h, w, 3), result, visits
+    with timing.span("render.frame"):
+        h, w = dirs.shape[:2]
+        n = h * w
+        morton = _check_schedule(mode, h, w, warp_table, warp_levels, with_visits, show_hits,
+                                 visit_flags, paged, bricks, beams, beam_iters, raw_result,
+                                 pre_permuted, warp_in_body, shadow_seed, pack_pool, tile_size,
+                                 max_steps)
+        if show_hits:
+            shadows, with_visits, visit_flags = False, True, False
+        strict = not misc_bool
+        gamma = 2.2 - 1.2 * misc_bool
+        visits = None
+        if with_visits:
+            visits = torch.zeros(words.shape[0], dtype=_I32, device=words.device)
+        start = visit_idx = None
+        if mode in ("tiled", "staged") and beams and h % beams == 0 and w % beams == 0:
+            start, visit_idx = beam_start(words, origin, dirs, block=beams, strict_descent=strict)
+        order = None  # the block order of the primary rays
+        if mode == "beam" and (raw_result or pre_permuted):
+            order = (h, w, beams or 8, morton)
+            flat = dirs.reshape(n, 3)
+            rays = (flat if pre_permuted else _pixel_to_block(flat, *order)).contiguous()
+        else:
+            rays = dirs.contiguous()
+        origins = origin.reshape(1, 3).contiguous().expand(n, 3)  # one point, stride 0
+        kw = dict(max_steps=max_steps, strict_descent=strict, parent_restart=parent_restart,
+                  bricks=bricks, brick_k=brick_k, warp_table=warp_table,
+                  warp_in_body=warp_in_body)
+        with timing.span("render.trace"):
+            result = trace(words, origins, rays, visits=visits, visit_flags=visit_flags,
+                           paged=paged, start=start, **kw)
+            if with_visits and visit_flags:
+                visits = overlay_hit_counts(visits, result)
+        shadow_hit = None
+        if shadows and not show_steps:
+            with timing.span("render.shadow"):
+                shadow_hit = trace_shadow(words, result, sun_dir, cull=not with_visits,
+                                          visits=visits, image_width=0 if order else w, **kw)
+        if with_visits and visit_idx is not None:
+            _add_beam_marks(visits, visit_idx, visit_flags)
+        if paged is not None and paged_old_of_new is not None:
+            # Hit slots back to the original pool's (the rest of the result is
+            # slot-independent).
+            old = torch.as_tensor(paged_old_of_new, device=words.device)
+            slot = old[result.index.clamp(0, old.shape[0] - 1).long()].to(_I32)
+            result = result._replace(index=torch.where(result.index >= 0, slot, result.index))
+        with timing.span("render.shade"):
+            img = shade(result, shadow_hit, show_steps=show_steps and not show_hits,
+                        sun_dir=sun_dir, gamma=gamma, u8=u8_image,
+                        hits_visits=visits if show_hits else None, block_order=order)
+        if order is not None and not raw_result:
+            result = TraceResult(*(_block_to_pixel(f, *order) for f in result))
+        return img.reshape(h, w, 3), result, visits
 
 
 def _pack_result(result: TraceResult, active: torch.Tensor) -> torch.Tensor:

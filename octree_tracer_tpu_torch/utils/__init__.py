@@ -1,5 +1,5 @@
 """Utilities: timing and profiling instrumentation."""
 
-from .timing import FrameTimer, timed, torch_trace
+from .timing import FrameTimer, clear, count, records, span, timed, torch_trace
 
-__all__ = ["FrameTimer", "timed", "torch_trace"]
+__all__ = ["FrameTimer", "clear", "count", "records", "span", "timed", "torch_trace"]

@@ -25,6 +25,7 @@ import numpy as np
 from .. import native
 from ..core.cpu_octree import CpuOctree
 from ..core.voxel import CHUNK_OFFSET, child_offset
+from ..utils import timing
 
 
 BLOCK_NAMES = [
@@ -90,11 +91,13 @@ class World:
             if index in self.loading or index in self.chunks:
                 return
             self.loading.add(index)
+        step = timing.current_step()  # the requesting step's, for its span
 
         def work():
             try:
-                with open(os.path.join(self.path, f"{index}.bin"), "rb") as f:
-                    chunk = CpuOctree.from_bin(f.read())
+                with timing.span("world.load_chunk", step=step):
+                    with open(os.path.join(self.path, f"{index}.bin"), "rb") as f:
+                        chunk = CpuOctree.from_bin(f.read())
                 with self._lock:
                     self.chunks[index] = chunk
             finally:
