@@ -2,11 +2,12 @@
 the ``Octree``'s own buffers (the JAX package's ``app/native_engine.py``,
 copied; tests hold it equal to ``adaptive.engine``).
 
-The library writes the buffers directly, so the octree learns the depth of
-the nodes it gained from their positions (``Octree.note_depth``), and the
-child groups that collapses freed from the hole stack. The JAX package's
-bridge journals no freed group, so its ``Octree.drain_freed()`` is always
-empty under this engine.
+The library writes the buffers directly, so the octree takes the slots it
+patched as one array (``Octree.mark_slots``; the JAX package's bridge marks
+them one at a time), learns the depth of the nodes it gained from their
+positions (``Octree.note_depth``), and the child groups that collapses freed
+from the hole stack. The JAX package's bridge journals no freed group, so
+its ``Octree.drain_freed()`` is always empty under this engine.
 """
 
 from __future__ import annotations
@@ -38,11 +39,22 @@ def _make_pool(octree, extra_capacity: int, extra_holes: int):
 
 
 def _sync(octree, pool, holes, patches, n_patches):
+    """Take the library's writes into the octree: its length, its hole stack
+    and the patched slots, journalled as one array. A subdivision only pops
+    holes off the top of the stack and a collapse only pushes them on, so
+    the list is cut or extended, not rebuilt. Returns the holes pushed."""
     octree._len = int(pool.len)
-    octree.hole_stack = [int(h) for h in holes[: int(pool.hole_len)]]
-    for idx in patches[:n_patches]:
-        octree._mark(int(idx), int(idx) + 1)
-    octree.note_depth(patches[:n_patches].astype(np.int64))
+    hole_len = int(pool.hole_len)
+    pushed = holes[len(octree.hole_stack): hole_len].tolist()
+    del octree.hole_stack[hole_len:]
+    octree.hole_stack.extend(pushed)
+    slots = patches[:n_patches]
+    octree.mark_slots(slots)
+    # A new child group is patched whole, its 8-aligned base among it; every
+    # other patched slot is its sibling, its parent or a collapsed node the
+    # tree held already, so no deeper.
+    octree.note_depth(slots[slots % 8 == 0])
+    return pushed
 
 
 def process_subdivision(candidates, octree, world):
@@ -93,7 +105,6 @@ def process_unsubdivision(candidates, octree, world):
         n_patches = ctypes.c_uint64(0)
         evict = np.zeros(max(16, cand.shape[0]), dtype=np.uint32)
         n_evict = ctypes.c_uint64(0)
-        n_holes = len(octree.hole_stack)
 
         with timing.span("engine.native"):
             applied = lib.otc_process_unsubdivision(
@@ -107,11 +118,11 @@ def process_unsubdivision(candidates, octree, world):
                 ctypes.c_uint64(evict.shape[0]),
             )
         with timing.span("engine.sync"):
-            _sync(octree, pool, holes, patches, int(n_patches.value))
             # Each collapse pushed its child group on the hole stack; journal
             # them as Octree.unsubdivide does, so the Session can drop stale
             # candidates.
-            octree._freed.extend(octree.hole_stack[n_holes:])
+            octree._freed.extend(_sync(octree, pool, holes, patches,
+                                       int(n_patches.value)))
             evicted = np.unique(evict[: int(n_evict.value)])
             for eid in evicted:
                 world.evict_chunk(int(eid))

@@ -163,6 +163,7 @@ class Session:
     def _push_patches(self):
         with timing.span("session.patches"):
             idx, vals = self.octree.drain_patches()
+            timing.count("session.patched_slots", idx.size)
             if idx.size == 0:
                 return 0
             if idx.size > MAX_PATCH_WORDS or len(self.octree) > self.device_words.shape[0]:

@@ -7,9 +7,12 @@ recycled through a hole stack. Every mutation lands in a patch journal, and
 every collapse in a freed-group journal, so the device copy is patched with
 compact scatters instead of re-uploaded.
 
-One addition: ``max_depth`` is the deepest node depth the tree has held. The
+Two additions: ``max_depth`` is the deepest node depth the tree has held. The
 visit closure (``adaptive.feedback.propagate_visits``) takes its pass count
-from it instead of a fixed cap.
+from it instead of a fixed cap. And the patch journal (``PatchJournal``)
+takes whole slot arrays beside spans (``mark_slots``), so an engine that
+writes the buffers directly hands its patched slots over in one call, and
+the drain expands, sorts and deduplicates them without a Python step a slot.
 """
 
 from __future__ import annotations
@@ -32,6 +35,52 @@ def node_depth(positions: np.ndarray) -> np.ndarray:
     return 24 - tz
 
 
+class PatchJournal:
+    """The slots touched since the last drain: ``(start, stop)`` spans and
+    arrays of single slots, in the order they were marked. ``len``, indexing
+    and iteration read an array's slots as one ``(slot, slot + 1)`` span
+    each, as if each had been marked alone."""
+
+    def __init__(self):
+        self._parts: list = []  # (start, stop) tuples and int32 slot arrays
+
+    def mark(self, start: int, stop: int) -> None:
+        self._parts.append((start, stop))
+
+    def mark_slots(self, slots: np.ndarray) -> None:
+        if len(slots):
+            self._parts.append(np.array(slots, dtype=np.int32))
+
+    def __bool__(self) -> bool:
+        return bool(self._parts)
+
+    def __len__(self) -> int:
+        return sum(1 if isinstance(p, tuple) else p.size for p in self._parts)
+
+    def __iter__(self):
+        for part in self._parts:
+            if isinstance(part, tuple):
+                yield part
+            else:
+                yield from ((s, s + 1) for s in part.tolist())
+
+    def __getitem__(self, key):
+        return list(self)[key]
+
+    def indices(self) -> np.ndarray:
+        """Every journalled slot once, sorted, int32."""
+        spans = [p for p in self._parts if isinstance(p, tuple)]
+        slots = [p for p in self._parts if not isinstance(p, tuple)]
+        if spans:
+            start, stop = np.array(spans, dtype=np.int64).reshape(-1, 2).T
+            n = np.maximum(stop - start, 0)
+            # Slot k of the expansion is its span's start plus k less the
+            # slots of the spans before it.
+            base = np.repeat(start - (np.cumsum(n) - n), n)
+            slots.append((base + np.arange(base.size)).astype(np.int32))
+        return np.unique(np.concatenate(slots))
+
+
 class Octree:
     """Streamed node pool with subdivide/unsubdivide and hole recycling."""
 
@@ -47,7 +96,7 @@ class Octree:
         self._nodes[:8] = leaf_word(mask_rgb24)
         self._positions[:8] = child_offset(np.arange(8), 1)
         self.hole_stack: list[int] = []
-        self._dirty: list[tuple[int, int]] = []  # (start, stop) spans
+        self._dirty = PatchJournal()
         self._freed: list[int] = []  # group bases released since drain_freed
         self.max_depth = 1
 
@@ -86,7 +135,12 @@ class Octree:
             self._positions = positions
 
     def _mark(self, start: int, stop: int) -> None:
-        self._dirty.append((start, stop))
+        self._dirty.mark(start, stop)
+
+    def mark_slots(self, slots: np.ndarray) -> None:
+        """Journal every slot of ``slots`` as patched (for engines that write
+        the buffers directly)."""
+        self._dirty.mark_slots(slots)
 
     def note_depth(self, slots: np.ndarray) -> None:
         """Raise ``max_depth`` to the depth of the nodes at ``slots`` (for
@@ -168,8 +222,6 @@ class Octree:
         journal is cleared."""
         if not self._dirty:
             return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.uint32)
-        spans = self._dirty
-        self._dirty = []
-        idx = np.unique(
-            np.concatenate([np.arange(a, b, dtype=np.int32) for a, b in spans]))
+        journal, self._dirty = self._dirty, PatchJournal()
+        idx = journal.indices()
         return idx, self._nodes[idx]

@@ -123,6 +123,41 @@ def test_traced_steps_give_the_span_tree(world_dir):
     assert {c.step for c in counts} <= updates
 
 
+def test_patched_slots_count_each_steps_drain(world_dir):
+    """``session.patched_slots`` adds, under each traced update, the slots
+    that step's patch journal drained (its ``patched`` stat), and the
+    benchmark's ``patched_slots.fly`` reads their sum over the stretch's
+    steps; without a profiler nothing is recorded."""
+    from types import SimpleNamespace
+
+    from portbench import harness
+
+    s = _session(world_dir)
+    timing.clear()
+    assert sum(st["patched"] for st in _steps(s, 3)) > 0
+    assert timing.records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        stats = _steps(s, 3)
+    recs = timing.records()
+    updates = sorted((r.start_ns, r.step) for r in recs
+                     if isinstance(r, timing.Span) and r.name == "session.update")
+    counts = [r for r in recs if isinstance(r, timing.Count)
+              and r.name == "session.patched_slots"]
+    assert [sum(c.n for c in counts if c.step == step) for _, step in updates] \
+        == [st["patched"] for st in stats]
+    assert len(counts) == 3 and sum(c.n for c in counts) > 0
+    read = harness.reader("patched_slots.fly")
+    bench = harness.benchmark()
+    fly, orbit = (harness.cell_spec(bench, cell)["traffic"]
+                  for cell in ("island9-fly-noskip", "shell10-orbit"))
+    run = SimpleNamespace(traffic=fly, trace={"ops": 3})
+    assert read(run) == pytest.approx(sum(st["patched"] for st in stats) / 3)
+    assert read(SimpleNamespace(traffic=orbit, trace={"ops": 3})) is None
+    assert read(SimpleNamespace(traffic=fly, trace=None)) is None
+    timing.clear()  # a program without the counter
+    assert read(run) is None
+
+
 def test_traced_session_equals_untraced_twin(world_dir):
     a, b = _session(world_dir), _session(world_dir)
     with profile(activities=[ProfilerActivity.CPU]):

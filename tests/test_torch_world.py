@@ -225,7 +225,10 @@ def test_world_find_voxel_and_chunk_io(tmp_path):
         JWorld(asset_root=str(tmp_path / "no_assets"))
 
 
-def _engine_run(pkg_octree, world, eng_sub, eng_unsub, seed):
+def _engine_run(pkg_octree, world, eng_sub, eng_unsub, seed, journals=None):
+    """Six batches of splits and collapses of live nodes; with ``journals``,
+    each step's drained patches, drained freed slots and hole stack are
+    appended to it."""
     rng = np.random.default_rng(seed)
     t = pkg_octree(world.chunks[0].get_node_mask(0))
     stats = []
@@ -237,6 +240,8 @@ def _engine_run(pkg_octree, world, eng_sub, eng_unsub, seed):
             stats.append(eng_unsub(cand[: n // 8], t, world))
         else:
             stats.append(eng_sub(np.append(cand, -1), t, world))
+        if journals is not None:
+            journals.append((t.drain_patches(), t.drain_freed(), list(t.hole_stack)))
     return t, stats
 
 
@@ -270,16 +275,139 @@ def test_engines_equal_jax_package(engine_name):
 
 
 def test_native_engine_equals_jax_native_engine():
+    """The port's bridge journals the library's patches as one array and cuts
+    or extends the hole stack; JAX's marks one slot a patch and rebuilds the
+    stack. Every step's drained patches are equal byte for byte; JAX's bridge
+    journals no freed group, so the port's freed slots are those of the
+    groups the step pushed on JAX's hole stack."""
     chunks = _ref_world()
     a_w, b_w = state.world_from_numpy(chunks), _jax_world(chunks)
+    ja, jb = [], []
     a, sa = _engine_run(Octree, a_w, native_engine.process_subdivision,
-                        native_engine.process_unsubdivision, seed=11)
+                        native_engine.process_unsubdivision, seed=11, journals=ja)
     b, sb = _engine_run(JOctree, b_w, jnative_engine.process_subdivision,
-                        jnative_engine.process_unsubdivision, seed=11)
+                        jnative_engine.process_unsubdivision, seed=11, journals=jb)
     assert [_first(x) for x in sa] == [_first(x) for x in sb]
     np.testing.assert_array_equal(a.nodes, b.nodes)
     assert a.hole_stack == b.hole_stack
     assert sorted(a_w.chunks) == sorted(b_w.chunks)
+    held, freed = [], 0
+    for ((ia, va), fa, ha), ((ib, vb), fb, hb) in zip(ja, jb):
+        assert ia.size and ia.dtype == ib.dtype and va.dtype == vb.dtype
+        assert ia.tobytes() == ib.tobytes() and va.tobytes() == vb.tobytes()
+        assert ha == hb and fb.size == 0
+        pushed = np.asarray(hb[len(held):], dtype=np.int64)
+        np.testing.assert_array_equal(fa, (pushed[:, None] + np.arange(8)).reshape(-1))
+        held, freed = hb, freed + fa.size
+    assert freed > 0
+
+
+class _SlotJournal(Octree):
+    """The port's octree beside a per-slot reference journal: a span a
+    ``_mark``, and one ``(slot, slot + 1)`` span a slot of each array, as
+    the bridge marked each patched slot alone, drained one ``arange`` a
+    span; and the deepest of every marked slot's depth."""
+
+    def __init__(self, mask):
+        super().__init__(mask)
+        self.ref, self.ref_depth = [], 1
+
+    def _mark(self, start, stop):
+        super()._mark(start, stop)
+        self._ref_marks([(int(start), int(stop))])
+
+    def mark_slots(self, slots):
+        super().mark_slots(slots)
+        self._ref_marks([(int(i), int(i) + 1) for i in slots])
+
+    def _ref_marks(self, spans):
+        self.ref.extend(spans)
+        for a, b in spans:
+            self.ref_depth = max(self.ref_depth, int(node_depth(self._positions[a:b]).max()))
+
+    def drain_reference(self):
+        spans, self.ref = self.ref, []
+        if not spans:
+            return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.uint32)
+        idx = np.unique(np.concatenate([np.arange(a, b, dtype=np.int32) for a, b in spans]))
+        return idx, self._nodes[idx]
+
+
+ENGINES = {"python": (engine.process_subdivision, engine.process_unsubdivision),
+           "native": (native_engine.process_subdivision, native_engine.process_unsubdivision)}
+
+
+def _mip_world():
+    world = state.world_from_numpy(_ref_world())
+    for cid in sorted(world.chunks, reverse=True):
+        world.generate_mip_tree(cid)
+    return world
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("engines", ["native", "python", "mixed"])
+def test_patch_journal_equals_per_slot_journal(engines, seed):
+    """Random batches through each engine, and both engines' batches in one
+    drain ("mixed": the Python engine's spans beside the library's arrays).
+    Each drain holds slots patched twice: nodes split, then some of them
+    collapsed, then split again from the groups they freed. The drained
+    (idx, vals) equal the per-slot journal's byte for byte, idx sorted and
+    unique; an empty drain is empty."""
+    world = _mip_world()
+    rng = np.random.default_rng(seed)
+    tree = _SlotJournal(world.chunks[0].get_node_mask(0))
+    for idx, vals in (tree.drain_patches(), tree.drain_patches()):
+        assert idx.dtype == np.int32 and vals.dtype == np.uint32 and idx.size == vals.size == 0
+    drains = 0
+    for step in range(9):
+        if engines == "mixed":  # the other engine collapses
+            kinds = ("python", "native") if step % 2 else ("native", "python")
+        else:
+            kinds = (engines, engines)
+        sub, unsub = ENGINES[kinds[0]][0], ENGINES[kinds[1]][1]
+        live = _live(tree)
+        cand = rng.permutation(live)[:48].astype(np.int32)
+        assert _first(sub(np.append(cand, -1), tree, world)) > 0
+        split = np.asarray([c for c in cand if tree.get_node(c) < int(voxel.VOXEL_OFFSET)],
+                           dtype=np.int32)
+        back = split[: max(1, split.size // 3)]
+        assert _first(unsub(back, tree, world)) == back.size
+        sub(back, tree, world)  # split again, from the groups just freed
+        if step % 3 == 2:
+            marked = sum(b - a for a, b in tree.ref)
+            idx, vals = tree.drain_patches()
+            want_idx, want_vals = tree.drain_reference()
+            assert idx.dtype == np.int32 and vals.dtype == np.uint32
+            assert idx.tobytes() == want_idx.tobytes() and vals.tobytes() == want_vals.tobytes()
+            assert np.all(np.diff(idx) > 0) and marked > idx.size
+            drains += 1
+    assert drains == 3 and tree.max_depth == tree.ref_depth > 1
+    idx, vals = tree.drain_patches()
+    assert idx.dtype == np.int32 and vals.dtype == np.uint32 and idx.size == vals.size == 0
+
+
+def test_journal_reads_one_span_a_slot_after_a_native_subdivision():
+    """What a caller that walks the journal sees: after the library's batch,
+    ``_dirty[first:]`` yields one ``(slot, slot + 1)`` pair a patched slot,
+    each split's node then its 8 children; ``_mark`` still journals a slot,
+    and the drain holds both."""
+    world = _mip_world()
+    tree = Octree(world.chunks[0].get_node_mask(0))
+    tree._mark(3, 4)
+    first = len(tree._dirty)
+    applied, _ = native_engine.process_subdivision(np.arange(8, dtype=np.int32), tree, world)
+    pairs = tree._dirty[first:]
+    assert applied > 0 and len(pairs) == 9 * applied == len(tree._dirty) - first
+    assert all(b == a + 1 for a, b in pairs) and list(tree._dirty)[first:] == pairs
+    for k in range(applied):
+        node, kids = pairs[9 * k][0], [a for a, _ in pairs[9 * k + 1: 9 * k + 9]]
+        assert tree.get_node(node) == kids[0] and kids == list(range(kids[0], kids[0] + 8))
+    slot = kids[0] + 8
+    tree._mark(slot, slot + 1)
+    assert len(tree._dirty) == first + 9 * applied + 1 and tree._dirty[-1] == (slot, slot + 1)
+    idx, _ = tree.drain_patches()
+    assert idx.tolist() == sorted({3, slot} | {a for a, _ in pairs})
+    assert len(tree._dirty) == 0 and list(tree._dirty) == []
 
 
 def test_native_library_builds_from_the_jax_source():
