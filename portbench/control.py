@@ -48,14 +48,18 @@ def control(run) -> dict:
     """The control's numbers on the frames (and candidate lists) the run
     kept: the bfloat16 reference against the float32 one."""
     diffs = pixels = cand = cand_ref = 0
+    steps = False
     for i, k in sorted(run.kept.items()):
-        if run.traffic["driver"] == "orbit":
+        # A Session step keeps its pose, its pool and its candidate lists; a
+        # frame keeps its outputs, drawn from the run's poses and pool.
+        fly = isinstance(k, dict)
+        steps |= fly
+        if fly:
+            pos, look, words = k["pos"], k["look"], ref_trace.widen(k["words"])
+        else:
             pos, look = run.poses[i % len(run.poses)]
             words = ref_trace.widen(torch.from_numpy(run.words_np.astype(np.int64))
                                     .to(run.device))
-        else:
-            pos, look, words = k["pos"], k["look"], ref_trace.widen(k["words"])
-        fly = run.traffic["driver"] == "fly"
         ref = compare.reference_frame(words, pos, look, run.settings, words.device, fly)
         low = compare.reference_frame(words, pos, look, run.settings, words.device, fly, BF16)
         diffs += compare.frame_diffs(low["u8"], low["hit"], low["index"], ref)
@@ -67,7 +71,7 @@ def control(run) -> dict:
             d = compare.candidate_diffs(packed, caps, sel, words, ref["visits"], k["node_len"])
             cand, cand_ref = cand + d["diffs"], cand_ref + d["reference"]
     out = {"frame_diff_pct": run.percent(diffs, pixels)}
-    if run.traffic["driver"] == "fly":
+    if steps:
         out["candidate_diff_pct"] = run.percent(cand, cand_ref)
     return out
 

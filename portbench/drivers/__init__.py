@@ -1,5 +1,6 @@
 """The drivers of the benchmark's traffic: ``orbit`` (frames of a static
-scene) and ``fly`` (Session steps over a streaming world). A traffic file
+scene), ``sharded`` (the same frames with their rows sharded over cards)
+and ``fly`` (Session steps over a streaming world). A traffic file
 names its driver; each driver's ``Run`` sets up, measures a window,
 optionally profiles, releases the program's state and checks what the
 window produced."""
@@ -20,6 +21,10 @@ _LIMITS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 class Base:
     """What every driver's run holds: the cell's spec, the seed, the device,
     counts and timings for the metric readers, and the checks."""
+
+    # What one timed operation is ("frame", "step"): the end-to-end readers
+    # of a rate take a driver's window by it, not by the driver's name.
+    OP: str | None = None
 
     def __init__(self, spec: dict, seed: int, device):
         self.spec = spec

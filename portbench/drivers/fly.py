@@ -43,6 +43,8 @@ PARTS = ("render", "update", "fetch")
 
 
 class Run(Base):
+    OP = "step"
+
     def setup(self) -> None:
         from octree_tracer_tpu_torch.app.session import Session
 

@@ -19,6 +19,8 @@ from . import Base
 
 
 class Run(Base):
+    OP = "frame"
+
     def setup(self) -> None:
         from octree_tracer_tpu_torch.render import camera, skip
         from octree_tracer_tpu_torch.state import u32_to_device

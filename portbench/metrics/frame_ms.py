@@ -3,4 +3,4 @@ from portbench import readers
 
 
 def read(run):
-    return readers.ms_per_op(run, "orbit")
+    return readers.ms_per_op(run, "frame")

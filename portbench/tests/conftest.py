@@ -38,12 +38,13 @@ TINY = {"shell": {"depth": 6, "width": 64, "height": 36, "warp_levels": 3},
         "island": {"chunk_depth": 4, "width": 64, "height": 36}}
 
 
-def tiny_spec(workload: str) -> dict:
-    """The cell's spec at a size the CPU runs in a second or two: a depth-6
-    shell or a chunk_depth-4 island at 64x36, few warm steps."""
+def tiny_spec(workload: str, bench: dict | None = None) -> dict:
+    """The cell's spec (of ``bench``, BENCHMARK.json by default) at a size
+    the CPU runs in a second or two: a depth-6 shell or a chunk_depth-4
+    island at 64x36, few warm steps."""
     from portbench import harness
 
-    spec = harness.cell_spec(harness.benchmark(), workload)
+    spec = harness.cell_spec(bench or harness.benchmark(), workload)
     spec["settings"].update(TINY[spec["settings"]["scene"]])
     # Eight warm steps: the island's flight starts inside the world cube,
     # whose octant leaves every ray hits until the steps split them.

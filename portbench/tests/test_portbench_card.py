@@ -17,8 +17,11 @@ CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_on_the_card(cell, trace, card):
     spec = harness.cell_spec(harness.benchmark(), cell)
+    chips = spec["cell"]["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA cards")
     run = harness.execute(spec, 2**31 + 5, 2.0, trace, card, time.perf_counter())
-    line = harness.result_line(spec, run, trace, harness.device_info(torch, 1))
+    line = harness.result_line(spec, run, trace, harness.device_info(torch, chips))
     assert line["correct"], line["checks"]
     names = {m["name"] for m in spec["per_layer" if trace else "end_to_end"]}
     assert set(line["metrics"]) == names

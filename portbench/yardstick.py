@@ -20,6 +20,11 @@ F32_OPS_PER_S = 67e12
 # normal (12 B each).
 RESULT_BYTES = 42
 DIR_BYTES = 12
+# A u8 pixel.
+PIXEL_BYTES = 3
+# NVLink 4 of one H100 SXM card, each direction (NVIDIA's data sheet: 900
+# GB/s in both together).
+NVLINK_BYTES_PER_S = 450e9
 
 
 def bound_s(nbytes: float, ops: float = 0.0) -> float:
@@ -35,6 +40,13 @@ def k1_frame_bytes(pool_words: int, table_words: int, rays: int) -> int:
     origins and normals (hit, hit position, normal: 25 B), and the shadow
     hit written (1 B)."""
     return 4 * (pool_words + table_words) + rays * (DIR_BYTES + RESULT_BYTES + 25 + 1)
+
+
+def gather_frame_bytes(rays: int, ranks: int) -> int:
+    """Bytes one rank must receive to hold the whole frame of ``rays`` rays
+    sharded over ``ranks``: the other ranks' rays, each a primary result and
+    a u8 pixel. It counts what the frame needs, not how a gather packs it."""
+    return rays * (ranks - 1) // ranks * (RESULT_BYTES + PIXEL_BYTES)
 
 
 def p95(values) -> float:
@@ -54,8 +66,12 @@ class Window:
         self.spans: list[tuple[float, float]] = []
         self.start = self.end = 0.0
 
-    def run(self, op) -> None:
-        """Call ``op(i)`` for i = 0, 1, ... until the deadline."""
+    def run(self, op, stop=None) -> None:
+        """Call ``op(i)`` for i = 0, 1, ... until the deadline. Given
+        ``stop``, the window ends after the first operation i for which
+        ``stop(i, due)`` is true, ``due`` saying whether operation i ended
+        past the deadline: processes that run one window together end it
+        where they agree."""
         self.start = time.perf_counter()
         deadline = self.start + self.seconds
         i = 0
@@ -64,9 +80,10 @@ class Window:
             op(i)
             t1 = time.perf_counter()
             self.spans.append((t0, t1))
-            i += 1
-            if t1 >= deadline:
+            due = t1 >= deadline
+            if stop(i, due) if stop else due:
                 break
+            i += 1
         self.end = self.spans[-1][1]
 
     @property
@@ -121,15 +138,18 @@ def read_trace(prof, t_window: float, labels=()) -> dict:
             "idle_gaps": named}
 
 
-def profile(op, count: int, sync, labels=()) -> dict:
+def profile(op, count: int, sync, labels=(), start=None) -> dict:
     """Run ``op(i)`` for i < ``count`` under ``torch.profiler`` (host and
     device activity), ending in ``sync()``, and read the trace; ``labels``
-    are the names of the spans ``op`` records."""
+    are the names of the spans ``op`` records. ``start()``, given, runs
+    under the profiler before the first operation and the window's start."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     sync()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if start:
+            start()
         t0 = time.perf_counter()
         for i in range(count):
             op(i)
