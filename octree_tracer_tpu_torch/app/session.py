@@ -22,7 +22,13 @@ Differences from the JAX Session:
   subdivide a slot of a group that batch freed, leaking the group;
 - the visit closure runs ``Octree.max_depth + 1`` passes, the depth of the
   tree it closes, where the JAX Session caps them at
-  ``min(24, octree_depth + 2)`` (``session.py:522``).
+  ``min(24, octree_depth + 2)`` (``session.py:522``);
+- a counted frame that rides the combined table's skip half marks, at every
+  skip jump, the empty leaf of each table cell the jump crosses
+  (``tracer._jump_slots``, K1's ``mark_jump``), so the closure leaves the
+  interiors a root descent reads: the JAX Session's jumps mark nothing and
+  it lists the interiors only they cross to collapse, which the reference
+  rule does not.
 
 The device-pool bucket ladder stays: the selection's index modulus, its
 rotation offset and the warp eligibility all read the device pool's length,
@@ -232,6 +238,7 @@ class Session:
     def _rebuild_skip_half(self) -> None:
         levels = tracer.warp_table_levels(self._warp_table)
         with timing.span("session.skip_rebuild"):
+            timing.count("session.skip_rebuilds")
             self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
 
     def _auto_warp(self, adaptive: bool):
@@ -283,6 +290,9 @@ class Session:
             adaptive = not s.pause_adaptive and (
                 s.feedback_every <= 1 or self.frame_count % s.feedback_every == 0)
             warp = self._auto_warp(adaptive)
+            # Every frame says whether its table carries a live skip half.
+            timing.count("session.skip_live",
+                         warp is not None and tracer.warp_table_combined(warp))
         self._frame_warped = adaptive and warp is not None
         # The pool the frame reads; patches replace device_words, not this.
         self._frame_words = self.device_words

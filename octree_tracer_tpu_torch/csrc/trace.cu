@@ -104,6 +104,11 @@
 // stays warp-aggregated. A per-lane cache of the last slot at each depth
 // measured slower: its flushes come apart across a warp's lanes (PERF.md
 // §6).
+// A counting form's skip jump also marks the empty leaf that covers each table
+// cell the jumped segment crosses (`mark_jump`), as a root descent there reads
+// it, so that K6's closure leaves a root descent's interior zero-set: a jump
+// that marks nothing (JAX's) leaves the interiors only it crosses unread, and
+// the Session lists them to collapse.
 #include <climits>
 
 #include "common.cuh"
@@ -224,6 +229,96 @@ __device__ __forceinline__ void mark(int32_t* visits, int32_t slot, int32_t n_wo
     } else {
       visits[slot] = 1;
     }
+  }
+}
+
+// The covering slot of level-L cell c (centre cc) of a combined table, as
+// render/tracer.py `_cell_slots`: from a stored node (depth > 0), its child
+// toward the centre; from a word of depth 0, the slot that K2's descent
+// toward the centre reads last. In an empty cell both are its empty leaf.
+__device__ __forceinline__ int32_t cell_slot(const uint32_t* __restrict__ table,
+                                             const uint32_t* __restrict__ words,
+                                             int32_t n_words, int levels, const int c[3],
+                                             const float cc[3]) {
+  const int32_t flat = (((c[0] << levels) + c[1]) << levels) + c[2];
+  const uint32_t packed = __ldg(table + 2 * flat);
+  const int32_t w_depth = static_cast<int32_t>(packed & 31u);
+  if (w_depth > 0) {
+    const int shift = max(levels - w_depth, 0);
+    const float half = ot::pow2(-w_depth);
+    int child = 0;
+    for (int k = 0; k < 3; ++k) {
+      const float anc = static_cast<float>(c[k] >> shift);
+      child = child * 2 + (cc[k] > (anc * 2.0f + 1.0f) * half - 1.0f);
+    }
+    return static_cast<int32_t>(packed >> 5) + child;
+  }
+  const int32_t last_row = (n_words - 1) >> 3;
+  int32_t node = 0, slot = 0;
+  float np[3] = {0.0f, 0.0f, 0.0f};
+  for (int it = 0; it < levels; ++it) {
+    bool pb[3];
+    for (int k = 0; k < 3; ++k) pb[k] = cc[k] > np[k];
+    const int child = pb[0] * 4 + pb[1] * 2 + pb[2];
+    slot = node + child;
+    const int32_t at = (min(node >> 3, last_row) << 3) | child;
+    const uint32_t payload = (at < n_words ? __ldg(words + at) : 0u) >> 4;
+    if (payload >= ot::kVoxelOffset) break;
+    node = static_cast<int32_t>(payload);
+    const float h = ot::pow2(-(it + 1));
+    for (int k = 0; k < 3; ++k) np[k] = np[k] + (pb[k] ? h : -h);
+  }
+  return slot;
+}
+
+// A counted skip jump's marks (render/tracer.py `_jump_slots`): a root
+// descent through the jumped segment reads, in every cell it crosses, the
+// empty leaf that covers the cell (a cube holds no node below level L) and
+// its ancestors. The walk steps from cell to cell by each cell's exit planes,
+// (plane - p) / d as the jump's own planes, every tied axis at once, until it
+// leaves the cube of `skw` cells anchored at v's cell or the grid, and marks
+// the covering slot of each cell entered outside the leaf it jumps from
+// (centre lc, half side lh); K6's closure marks the ancestors. Only the
+// counting forms with a combined table take it (four blocks an SM, below).
+template <int VISITS>
+__device__ __forceinline__ void mark_jump(const uint32_t* __restrict__ table,
+                                          const uint32_t* __restrict__ words, int32_t n_words,
+                                          int levels, int32_t* visits, const float p[3],
+                                          const float d[3], const float rs[3],
+                                          const float v[3], int32_t skw, const float lc[3],
+                                          float lh) {
+  const int side = 1 << levels;
+  const float half_side = static_cast<float>(side) * 0.5f;
+  const float last = static_cast<float>(side - 1);
+  const float cw = 2.0f / static_cast<float>(side);
+  int c[3], s[3], lo[3], hi[3];
+  for (int k = 0; k < 3; ++k) {
+    c[k] = static_cast<int>(cell_f(v[k], half_side, last));
+    s[k] = rs[k] > 0.0f ? 1 : -1;
+    const int edge = c[k] + s[k] * (skw - 1);
+    lo[k] = max(min(c[k], edge), 0);
+    hi[k] = min(max(c[k], edge), side - 1);
+  }
+  for (int it = 0; it < 3 * skw; ++it) {
+    float tt[3];
+    for (int k = 0; k < 3; ++k) {
+      const float clo = static_cast<float>(c[k]) * cw - 1.0f;
+      tt[k] = ((rs[k] > 0.0f ? clo + cw : clo) - p[k]) / d[k];
+    }
+    const float tm = fminf(fminf(tt[0], tt[1]), tt[2]);
+    bool live = true;
+    for (int k = 0; k < 3; ++k) {
+      if (tt[k] <= tm) c[k] += s[k];
+      live = live && c[k] >= lo[k] && c[k] <= hi[k];
+    }
+    if (!live) break;
+    float cc[3];
+    bool in_leaf = true;
+    for (int k = 0; k < 3; ++k) {
+      cc[k] = (static_cast<float>(c[k]) + 0.5f) * cw - 1.0f;
+      in_leaf = in_leaf && cc[k] > lc[k] - lh && cc[k] < lc[k] + lh;
+    }
+    if (!in_leaf) mark<VISITS>(visits, cell_slot(table, words, n_words, levels, c, cc), n_words);
   }
 }
 
@@ -584,6 +679,10 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
         }
         if (fminf(fminf(st[0], st[1]), st[2]) > fminf(fminf(t[0], t[1]), t[2])) {
           for (int k = 0; k < 3; ++k) t[k] = st[k];
+          if constexpr (VISITS != 0) {
+            mark_jump<VISITS>(a.table, words, n_words, a.levels, a.visits, p, d, rs, v, skw,
+                              np, inv1);
+          }
         }
       }
       const bool face[3] = {t[0] <= fminf(t[1], t[2]), t[1] <= fminf(t[2], t[0]),
@@ -699,16 +798,22 @@ __device__ __forceinline__ void trace_block(const TraceArgs& a) {
 // Five resident blocks an SM (40 warps) hold the primary instantiations to
 // 48 registers, where they otherwise take 51 and fit four (PERF.md §6). The
 // brick forms, whose trip holds the brick's state beside the ray's, fit
-// four (64 registers).
+// four (64 registers), and so do the counting forms with a combined table,
+// whose jumps walk the cells they cross (`mark_jump`): at 48 registers they
+// spill 36-136 bytes, inline or called out of line; at 64, 57-63 and none.
+template <int TABLE, int VISITS, bool BRICKS>
+constexpr int kBlocksPerSm = BRICKS || (TABLE == 2 && VISITS != 0) ? 4 : 5;
+
 template <bool STRICT, int TABLE, int VISITS, bool SHADOW, bool ROOT, bool BRICKS>
-__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5) trace_kernel(const TraceArgs a) {
+__global__ void __launch_bounds__(ot::kBlock, (kBlocksPerSm<TABLE, VISITS, BRICKS>))
+    trace_kernel(const TraceArgs a) {
   trace_block<STRICT, TABLE, VISITS, SHADOW, ROOT, BRICKS, 0>(a);
 }
 
 // The start forms (JAX `trace(start=...)`), a kernel of their own so that
 // the forms above keep their code: primary only, under the same bounds.
 template <bool STRICT, int TABLE, int VISITS, bool ROOT, bool BRICKS>
-__global__ void __launch_bounds__(ot::kBlock, BRICKS ? 4 : 5)
+__global__ void __launch_bounds__(ot::kBlock, (kBlocksPerSm<TABLE, VISITS, BRICKS>))
     trace_start_kernel(const TraceArgs a) {
   trace_block<STRICT, TABLE, VISITS, false, ROOT, BRICKS, 1>(a);
 }

@@ -236,6 +236,80 @@ def _warp_lookup(table: torch.Tensor, levels: int, p: torch.Tensor,
     )
 
 
+def _cell_slots(table: torch.Tensor, levels: int, pool: torch.Tensor,
+                cells: torch.Tensor) -> torch.Tensor:
+    """The covering slot of each cell (int64[m, 3] grid coordinates) of a
+    combined table: from a stored node (depth > 0), its child toward the
+    cell's centre; from a word of depth 0 (the root's, or one the Session
+    zeroed), the slot that the table build's descent toward the centre
+    (``_k2_descent``) reads last. In an empty cell both are the empty leaf
+    that covers it, which a root descent through the cell reads."""
+    side = 1 << levels
+    flat = (cells[:, 0] * side + cells[:, 1]) * side + cells[:, 2]
+    centre = (cells.to(_F32) + 0.5) * (2.0 / side) - 1.0
+    packed = table[flat * 2]
+    w_depth = packed & 31
+    anc = cells >> (levels - w_depth).clamp(min=0)[:, None]
+    w_centre = (anc.to(_F32) * 2.0 + 1.0) * _pow2(-w_depth)[:, None] - 1.0
+    pb = centre > w_centre
+    slot = (packed >> 5) + pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
+    root = torch.nonzero(w_depth == 0).squeeze(1)
+    if root.numel():
+        c = centre[root]
+        node = torch.zeros_like(root)
+        node_pos = torch.zeros_like(c)
+        last = node
+        for it in range(levels):
+            pb = c > node_pos
+            child = pb[:, 0].long() * 4 + pb[:, 1].long() * 2 + pb[:, 2].long()
+            last = node + child
+            payload = pool[_row_read(pool, node, child)] >> 4
+            down = payload < VOXEL_OFFSET
+            step = (pb.to(_F32) * 2.0 - 1.0) * 0.5 ** (it + 1)
+            node_pos = torch.where(down[:, None], node_pos + step, node_pos)
+            node = torch.where(down, payload, node)
+        slot[root] = last
+    return slot
+
+
+def _jump_slots(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
+                leaf_c, leaf_h) -> torch.Tensor:
+    """The slots a counted skip jump marks, for rays that take one from
+    position ``v`` (entry ``p``, direction ``d``, signs ``rs``) across the
+    cube of ``skw`` cells anchored at ``v``'s cell, out of the empty leaf of
+    centre ``leaf_c`` and half side ``leaf_h``.
+
+    A root descent through the jumped segment reads, in every cell it
+    crosses, the empty leaf that covers the cell (the cube holds no node
+    below the table's level) and that leaf's ancestors. The walk is K1's
+    ``mark_jump`` loop, line for line, over every ray at once: it steps from
+    cell to cell by the exit planes of each cell, (plane - p) / d as the
+    jump's own planes, every tied axis at once, until it leaves the cube or
+    the grid, and marks the covering slot (``_cell_slots``) of each cell
+    entered outside the leaf; the visit closure then marks the ancestors."""
+    side = 1 << levels
+    cw = 2.0 / side
+    c = torch.floor((v + 1.0) * (side / 2.0)).clamp(0, side - 1).long()
+    s = torch.where(rs > 0, 1, -1)
+    far = c + s * (skw - 1)[:, None]
+    lo = torch.minimum(c, far).clamp(min=0)
+    hi = torch.maximum(c, far).clamp(max=side - 1)
+    live = torch.ones_like(skw, dtype=torch.bool)
+    entered = []
+    for it in range(3 * int(skw.max())):
+        clo = c.to(_F32) * cw - 1.0
+        tt = (torch.where(rs > 0, clo + cw, clo) - p) / d
+        c = c + s * (tt <= tt.amin(dim=1, keepdim=True))
+        live = live & (it < 3 * skw) & torch.all((c >= lo) & (c <= hi), dim=1)
+        if not bool(live.any()):
+            break
+        cc = (c.to(_F32) + 0.5) * cw - 1.0
+        in_leaf = torch.all((cc > leaf_c - leaf_h) & (cc < leaf_c + leaf_h), dim=1)
+        entered.append(c[live & ~in_leaf])
+    cells = torch.cat(entered) if entered else c[:0]
+    return _cell_slots(table, levels, pool, cells)
+
+
 def _pool_rows(words: torch.Tensor) -> torch.Tensor:
     """The pool's words widened (``widen_u32``) and padded with zero words
     to whole 8-word rows, as JAX pads the pool before its row gathers
@@ -476,6 +550,10 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
             st = (plane - p) / d
             sk_use = (skw > 0) & (st.amin(dim=1) > t.amin(dim=1))
             t = torch.where(sk_use[:, None], st, t)
+            jump = sk_use & stepping
+            if visits is not None and bool(jump.any()):
+                mark(_jump_slots(table, levels, pool, p[jump], d[jump], rs[jump], v[jump],
+                                 skw[jump], np_[jump], inv1[jump]))
         tx, ty, tz = t.unbind(1)
         face = torch.stack([tx <= torch.minimum(ty, tz),
                             ty <= torch.minimum(tz, tx),
@@ -695,11 +773,14 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     optional warp table (8^L words) or combined warp+skip table (2*8^L
     words) of ``words``. ``visits``, an optional int32 tensor of the pool's
     length, is marked in place at every slot a ray reads: counted, or set to
-    1 under ``visit_flags``. ``parent_restart=False`` takes the reference's
-    full re-descent after every boundary step (from the warp cell where the
-    table has one, else from the root), the only form whose visit counts
-    have the reference counter's magnitudes; hits are the same in both
-    forms. A ray still active after ``max_iters`` loop trips (by default
+    1 under ``visit_flags``; a skip jump of a combined table also marks the
+    empty leaf that covers each table cell it crosses (``_jump_slots``),
+    which a root descent reads there, so that the visit closure leaves a
+    root descent's interior zero-set. ``parent_restart=False`` takes the
+    reference's full re-descent after every boundary step (from the warp
+    cell where the table has one, else from the root), the only form whose
+    visit counts have the reference counter's magnitudes; hits are the same
+    in both forms. A ray still active after ``max_iters`` loop trips (by default
     ``(max_steps + 2) * 26``) stays unresolved.
 
     ``bricks``, the int32[pool, 8] table of ``bricks.build_bricks`` (then

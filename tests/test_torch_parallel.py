@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import torch_parallel_ranks as R
+from jump_marks import assert_reference_zero_set, reference_visits
 from octree_tracer_tpu.adaptive import feedback as jfeedback
 from octree_tracer_tpu.core import CpuOctree as JCpuOctree
 from octree_tracer_tpu.parallel import ShardedSession as JShardedSession
@@ -195,8 +196,9 @@ def test_sharded_frame_equals_jax(groups, n, case, mode):
     """The port's sharded frame against JAX's ``render_frame_sharded`` on a
     mesh of ``n`` virtual CPU devices (tiled mode; staged for flags and
     tables): hit and index equal; the
-    visits' filled-leaf counts and interior zero-set equal (closed with
-    ``propagate_visits`` under a table); u8 images equal on the shell and
+    visits' filled-leaf counts and interior zero-set equal (under a table
+    closed with ``propagate_visits``, and the zero-set the plain
+    reference's, inside JAX's); u8 images equal on the shell and
     by the u8 rule of ``test_torch_render.py`` on random colours (XLA's CPU
     ``pow`` rounds knife-edge values the other way, the port's unsharded
     frame against JAX's too); ``show_hits`` views, shard-local in both,
@@ -225,15 +227,23 @@ def test_sharded_frame_equals_jax(groups, n, case, mode):
     if visits is None:
         return
     v, vj = visits, np.asarray(visits_j)
+    filled, interior = _kinds(scene)
     if table:
+        # The port's jumps mark the empty leaves of the cells they cross,
+        # JAX's do not (tests/jump_marks.py): the closure leaves the
+        # reference frame's zero-set, inside JAX's.
         passes = 7  # leaves at depth 6
+        assert_reference_zero_set(words, v, reference_visits(
+            words, origin.numpy(), dirs.numpy(), shadows=True), passes)
         v = feedback.propagate_visits(state.u32_to_device(words, "cpu"),
                                       torch.from_numpy(v), passes).numpy()
         vj = np.asarray(jfeedback.propagate_visits(jnp.asarray(words), visits_j,
                                                    passes=passes))
-    filled, interior = _kinds(scene)
-    np.testing.assert_array_equal(v[filled], vj[filled])
-    np.testing.assert_array_equal(v[interior] == 0, vj[interior] == 0)
+        np.testing.assert_array_equal(v[filled], vj[filled])
+        assert ((vj[interior] == 0) >= (v[interior] == 0)).all()
+    else:
+        np.testing.assert_array_equal(v[filled], vj[filled])
+        np.testing.assert_array_equal(v[interior] == 0, vj[interior] == 0)
     assert v[filled].sum() > 0 and (v[interior] == 0).any() and (v[interior] > 0).any()
 
 

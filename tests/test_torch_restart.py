@@ -13,7 +13,10 @@ only form whose visit counts have the reference counter's magnitudes.
   start inside the root cube, as in ``test_torch_visits.py``: from outside,
   JAX's CPU build rounds a ray's entry point on the cube's face an ulp
   inside, so it resumes some rays at their warp cell where the port starts
-  them at the root.
+  them at the root. Under the combined table a counted jump also marks the
+  empty leaves of the cells it crosses, which JAX's leaves unread
+  (``jump_marks``): there the counts are JAX's but on empty leaves, and the
+  closed zero-set is the plain reference's.
 - Against the oracle, which always re-descends from the root: counts equal
   on the analytic scene of ``tests/test_tracer.py:145-163``.
 - Against the parent form: every field bit for bit, filled-leaf counts and
@@ -30,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jump_marks import assert_jax_marks_with_jumps, assert_reference_zero_set, reference_visits
 
 from octree_tracer_tpu.core import CpuOctree as JCpuOctree
 from octree_tracer_tpu.core import pack_rgb as jpack_rgb
@@ -122,8 +126,9 @@ def _assert_exact(a, b):
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_root_restart_equals_jax(scene, table, strict, flags):
     """Every field and every visit mark equal to JAX ``trace(parent_restart=
-    False, with_visits=True)``: no table, a warp table and a combined table,
-    strict and ``>=`` descent, counts and flags."""
+    False, with_visits=True)``: no table, a warp table and a combined table
+    (but its jumps' marks of empty leaves, the module docstring), strict and
+    ``>=`` descent, counts and flags."""
     words, tab = _words(scene), _table(scene, table)
     _, _, origins, dirs = _rays(INSIDE[scene])
     visits = torch.zeros(words.shape[0], dtype=torch.int32)
@@ -132,7 +137,13 @@ def test_root_restart_equals_jax(scene, table, strict, flags):
     b, expect = _jax(words, origins, dirs, tab, strict_descent=strict, with_visits=True,
                      visit_flags=flags, parent_restart=False)
     _assert_exact(a, b)
-    np.testing.assert_array_equal(visits.numpy(), expect)
+    if table == "combined":
+        assert_jax_marks_with_jumps(words, visits.numpy(), expect)
+        assert_reference_zero_set(words, visits.numpy(),
+                                  reference_visits(words, origins, dirs),
+                                  filled_counts=not flags)
+    else:
+        np.testing.assert_array_equal(visits.numpy(), expect)
     assert a["hit"].any() and visits.sum() > 0
 
 
@@ -235,7 +246,10 @@ def test_root_and_parent_forms_agree(scene, table, strict):
 
 def test_trace_shadow_root_restart_equals_jax():
     """K1's shadow mode in the root form: its hit mask and counts are JAX
-    ``trace(parent_restart=False)``'s on the shadow rays built in NumPy."""
+    ``trace(parent_restart=False)``'s on the shadow rays built in NumPy,
+    with the jumps' marks of empty leaves (the module docstring), whose
+    closure leaves the interior zero-set and filled-leaf counts of the
+    reference's trace of those rays."""
     words, tab = _words("random6"), _table("random6", "combined")
     _, d_img, origins, _ = _rays("inside2")
     w, t = state.u32_to_device(words, "cpu"), state.table_to_device(tab, "cpu")
@@ -250,7 +264,9 @@ def test_trace_shadow_root_restart_equals_jax():
     jres, expect = _jax(words, o_np, d_np, tab, active_init=jnp.asarray(res.hit.numpy()),
                         with_visits=True, parent_restart=False)
     np.testing.assert_array_equal(hit.numpy(), jres["hit"])
-    np.testing.assert_array_equal(visits.numpy(), expect)
+    assert_jax_marks_with_jumps(words, visits.numpy(), expect)
+    on = res.hit.numpy()
+    assert_reference_zero_set(words, visits.numpy(), reference_visits(words, o_np[on], d_np[on]))
     assert hit.any() and (res.hit & ~hit).any()
 
 
@@ -288,7 +304,8 @@ def test_render_frame_root_restart_matches_jax_modes(mode, table, cam, flags):
     """Counts and flags against JAX's staged and beam frames (its tiled frame
     takes neither a table nor flags). The staged frame re-descends per ray as
     ``trace`` does, so it is held exactly: every visit, with the combined
-    table, from inside the root cube. The beam frame shares a block's
+    table, from inside the root cube, but the jumps' marks of empty leaves
+    (the module docstring). The beam frame shares a block's
     descent and counts its shared visits by the block (tracer.py:1242-1253),
     so interior magnitudes differ by design: it is held to the two
     invariants that the LOD thresholds read, filled-leaf counts exact and
@@ -307,7 +324,7 @@ def test_render_frame_root_restart_matches_jax_modes(mode, table, cam, flags):
     np.testing.assert_allclose(img.numpy(), np.asarray(img_j), rtol=1e-6, atol=1e-7)
     v, vj = visits.numpy(), np.asarray(visits_j)
     if mode == "staged":
-        np.testing.assert_array_equal(v, vj)
+        assert_jax_marks_with_jumps(words, v, vj)
     filled, interior = _kinds(words)
     np.testing.assert_array_equal(v[filled], vj[filled])
     np.testing.assert_array_equal(v[interior] == 0, vj[interior] == 0)
@@ -367,7 +384,8 @@ MALFORMED = {k: v for k, v in scenes.malformed_pools().items() if k != "self_cyc
 def test_malformed_pool_root_restart_equals_jax(pool, table):
     """Pointers past the pool's end, in the root form: the clamped row reads
     and the dropped marks of JAX's row gather and scatter, every field and
-    count equal to JAX's."""
+    count equal to JAX's, but the combined table's jump marks of empty
+    leaves (the module docstring)."""
     words = MALFORMED[pool]
     tab = None if table == "none" else np.asarray(
         jskip.build_warp_skip_table(jnp.asarray(words), 3))
@@ -376,7 +394,10 @@ def test_malformed_pool_root_restart_equals_jax(pool, table):
     a = _port(words, origins, dirs, tab, visits, parent_restart=False)
     b, expect = _jax(words, origins, dirs, tab, with_visits=True, parent_restart=False)
     _assert_exact(a, b)
-    np.testing.assert_array_equal(visits.numpy(), expect)
+    if tab is None:
+        np.testing.assert_array_equal(visits.numpy(), expect)
+    else:
+        assert_jax_marks_with_jumps(words, visits.numpy(), expect)
     assert a["hit"].any() and (a["index"] >= words.shape[0]).any()
 
 

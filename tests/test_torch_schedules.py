@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jump_marks import assert_jax_marks_with_jumps, assert_reference_zero_set, reference_visits
 
 from octree_tracer_tpu.adaptive import feedback as jfeedback
 from octree_tracer_tpu.render import camera as jcam
@@ -225,7 +226,9 @@ def test_beam_start_depth_cap_and_checks():
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_trace_start_equals_jax(scene, table, restart):
     """JAX's beam starts (block 8) into both traces; every field and every
-    visit count equal."""
+    visit count equal, but the combined table's jump marks of empty leaves
+    (``jump_marks``), under which the closure leaves the reference's
+    zero-set."""
     words = _words(scene)
     o, d = _rays("inside")
     (ji, jp, jd), _ = jtracer.beam_start(jnp.asarray(words), jnp.asarray(o), jnp.asarray(d),
@@ -245,7 +248,11 @@ def test_trace_start_equals_jax(scene, table, restart):
         start=(_t(ji), _t(jp), _t(jd)), parent_restart=restart,
         warp_table=None if tab is None else state.table_to_device(tab, "cpu"))
     _assert_exact(ttracer.to_numpy(res), ttracer.to_numpy(res_j))
-    np.testing.assert_array_equal(visits.numpy(), np.asarray(visits_j))
+    if tab is None:
+        np.testing.assert_array_equal(visits.numpy(), np.asarray(visits_j))
+    else:
+        assert_jax_marks_with_jumps(words, visits.numpy(), np.asarray(visits_j))
+        assert_reference_zero_set(words, visits.numpy(), reference_visits(words, o, flat))
 
 
 @pytest.mark.parametrize("table", ["none", "combined"])

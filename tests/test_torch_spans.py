@@ -120,7 +120,11 @@ def test_traced_steps_give_the_span_tree(world_dir):
         == sum(st["subdivided"] for st in stats) > 0
     assert sum(c.n for c in counts if c.name == "engine.sub_read") >= \
         sum(st["subdivided"] for st in stats)
-    assert {c.step for c in counts} <= updates
+    # The frame's counter carries its render's step, one a frame; every
+    # other counter its update's.
+    renders = {r.step for r in roots if r.name == "session.render"}
+    assert {c.step for c in counts if c.name != "session.skip_live"} <= updates
+    assert sorted(c.step for c in counts if c.name == "session.skip_live") == sorted(renders)
 
 
 def test_patched_slots_count_each_steps_drain(world_dir):

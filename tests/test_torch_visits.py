@@ -15,6 +15,11 @@ JAX's beam ``render_frame`` counts magnitudes differently by design
 (tracer.py:3242-3253), so frame visits are held to the two invariants the LOD
 thresholds read: filled-leaf counts exact, and the set of interiors with no
 visit exact. The u8 images are equal.
+
+Under a combined table a counted skip jump also marks the empty leaf of each
+cell it crosses, which JAX's jump leaves unread (``jump_marks``): there the
+marks are held to JAX's on every slot but empty leaves, and the closed
+interior zero-set to the plain reference's root descent.
 """
 
 import functools
@@ -23,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jump_marks import assert_jax_marks_with_jumps, assert_reference_zero_set, reference_visits
 
 from octree_tracer_tpu.adaptive import feedback as jfeedback
 from octree_tracer_tpu.render import skip as jskip
@@ -99,12 +105,25 @@ def _trace_both(scene, cam, table, flags):
     return words, visits.numpy(), np.asarray(visits_j)
 
 
+def _assert_combined_marks(scene, cam, v, vj, flags, exact):
+    """Under the combined table: JAX's marks but on empty leaves, and the
+    reference's zero-set (and filled-leaf counts) of the same rays."""
+    words = _words(scene)
+    assert_jax_marks_with_jumps(words, v, vj, exact)
+    origin, dirs = _camera(cam)
+    assert_reference_zero_set(words, v, reference_visits(words, origin, dirs),
+                              filled_counts=not flags)
+
+
 @pytest.mark.parametrize("flags", [False, True], ids=["counts", "flags"])
 @pytest.mark.parametrize("table", ["none", "warp", "combined"])
 @pytest.mark.parametrize("scene,cam", [("shell5", "inside1"), ("random6", "inside2")])
 def test_trace_visits_equal_jax(scene, cam, table, flags):
     _, v, vj = _trace_both(scene, cam, table, flags)
-    np.testing.assert_array_equal(v, vj)
+    if table == "combined":
+        _assert_combined_marks(scene, cam, v, vj, flags, exact=True)
+    else:
+        np.testing.assert_array_equal(v, vj)
 
 
 @pytest.mark.parametrize("flags", [False, True], ids=["counts", "flags"])
@@ -114,10 +133,13 @@ def test_trace_visits_outside_camera_match_jax(scene, cam, table, flags):
     """Exact without a table and in flag mode; under a table the counts'
     marked set and filled-leaf counts are exact (see the module docstring)."""
     words, v, vj = _trace_both(scene, cam, table, flags)
-    if table == "none" or flags:
-        np.testing.assert_array_equal(v, vj)
     filled, _ = _kinds(words)
     np.testing.assert_array_equal(v[filled], vj[filled])
+    if table == "combined":
+        _assert_combined_marks(scene, cam, v, vj, flags, exact=flags)
+        return
+    if table == "none" or flags:
+        np.testing.assert_array_equal(v, vj)
     np.testing.assert_array_equal(v > 0, vj > 0)
 
 
@@ -177,15 +199,22 @@ def test_render_frame_visits_match_jax(mode, table):
         np.testing.assert_allclose(img.numpy(), np.asarray(img_j), rtol=1e-6, atol=0)
         assert len(np.unique(img.numpy())) > 2
     v, vj = visits.numpy(), np.asarray(visits_j)
+    filled, interior = _kinds(words)
     if tab is not None:
+        # The closure leaves the reference frame's zero-set, inside JAX's,
+        # whose jumps leave interiors unread (the module docstring).
         passes = 6  # shell5: leaves at depth 5
+        ref = reference_visits(words, origin, dirs, shadows=True)
+        assert_reference_zero_set(words, v, ref, passes)
         v = feedback.propagate_visits(state.u32_to_device(words, "cpu"), visits,
                                       passes).numpy()
         vj = np.asarray(jfeedback.propagate_visits(jnp.asarray(words), visits_j,
                                                    passes=passes))
-    filled, interior = _kinds(words)
-    np.testing.assert_array_equal(v[filled], vj[filled])
-    np.testing.assert_array_equal(v[interior] == 0, vj[interior] == 0)
+        np.testing.assert_array_equal(v[filled], vj[filled])
+        assert ((vj[interior] == 0) >= (v[interior] == 0)).all()
+    else:
+        np.testing.assert_array_equal(v[filled], vj[filled])
+        np.testing.assert_array_equal(v[interior] == 0, vj[interior] == 0)
     assert v[filled].sum() > 0 and (v[interior] == 0).any() and (v[interior] > 0).any()
 
 
@@ -241,9 +270,11 @@ def _jax_shadow(words, tab, hit, hit_pos, normal, cull):
 
 @pytest.mark.parametrize("cull", [True, False])
 def test_trace_shadow_counts_equal_shadow_rays(cull):
-    """``trace_shadow`` adds its rays' counts into the array passed: exactly
-    JAX ``trace``'s counts of the same shadow rays, and its hit mask is
-    JAX's."""
+    """``trace_shadow`` adds its rays' counts into the array passed: JAX
+    ``trace``'s counts of the same shadow rays, with the jumps' marks of
+    empty leaves (the module docstring), whose closure leaves the interior
+    zero-set and filled-leaf counts of the reference's trace of those rays;
+    its hit mask is JAX's."""
     words, tab = _words("random6"), _table("random6", "combined")
     origin, dirs = _camera("bench")
     w, t = state.u32_to_device(words, "cpu"), state.table_to_device(tab, "cpu")
@@ -255,7 +286,9 @@ def test_trace_shadow_counts_equal_shadow_rays(cull):
     hit_j, visits_j = _jax_shadow(words, tab, res.hit.numpy(), res.hit_pos.numpy(),
                                   res.normal.numpy(), cull)
     np.testing.assert_array_equal(hit.numpy(), hit_j)
-    np.testing.assert_array_equal((got - base).numpy(), visits_j)
+    assert_jax_marks_with_jumps(words, (got - base).numpy(), visits_j)
+    o, d, on = (x.numpy() for x in ttracer.shadow_rays(res, cull=cull))
+    assert_reference_zero_set(words, (got - base).numpy(), reference_visits(words, o[on], d[on]))
     assert hit.any() and visits_j.sum() > 0
 
 
@@ -265,7 +298,9 @@ def test_render_frame_visits_are_primary_then_shadow_counts(flags):
     marks (flags then the filled-leaf overlay of tracer.py:3414-3423, or
     counts), then the counts of the shadow rays of every hit (not culled),
     added into the same array. From a camera inside the root cube, so the
-    primary counts are exact under the table too."""
+    primary counts are exact under the table too; empty leaves also take
+    the jumps' marks, and the closure leaves the reference frame's
+    zero-set (the module docstring)."""
     words, tab = _words("random6"), _table("random6", "combined")
     origin, dirs = _camera("inside2")
     _, res, visits = _port_frame(words, tab, origin, dirs, with_visits=True,
@@ -283,5 +318,7 @@ def test_render_frame_visits_are_primary_then_shadow_counts(flags):
         want = np.where(counts > 0, counts, want)
     sh_hit, sh_visits = _jax_shadow(words, tab, hit, np.asarray(prim.hit_pos),
                                     np.asarray(prim.normal), cull=False)
-    np.testing.assert_array_equal(visits.numpy(), want + sh_visits)
+    assert_jax_marks_with_jumps(words, visits.numpy(), want + sh_visits)
+    assert_reference_zero_set(words, visits.numpy(),
+                              reference_visits(words, origin, dirs, shadows=True))
     assert sh_hit.any() and sh_visits.sum() > 0
