@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's eleven CUDA kernels from ``octree_tracer_tpu_torch/csrc``
+Builds the port's twelve CUDA kernels from ``octree_tracer_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), checks each against its
 plain PyTorch version at the main paths' shapes, checks the traversal kernel
 against the NumPy oracle on a subsample, and drives the main paths:
@@ -10,7 +10,10 @@ against the NumPy oracle on a subsample, and drives the main paths:
   deep10 pool and on pools whose pointers run past their end or cycle
   (``scenes.malformed_pools``), and K1 and K4's hit-counter view equal to
   theirs on those pools, from a camera on a centre plane too, where the
-  cyclic pool's descents pass 126 levels;
+  cyclic pool's descents pass 126 levels; K12 (``skip.build_skip_field``)
+  equal to the NumPy build bit for bit at every level 0-8 on deep10, on the
+  malformed pools and on random occupancies, its in-place skip half equal
+  to a fresh table's;
 - the frame: the bench's deep10 scene at 1920x1080 with shadows and the
   combined level-7 warp+skip table (phases 3-8): K1's tiled call from one
   stride-0 origin against the flat contiguous call and the plain version,
@@ -18,8 +21,9 @@ against the NumPy oracle on a subsample, and drives the main paths:
   ``torch.profiler`` breakdown of the frame;
 - the adaptive streaming Session on the deep10 shell world at 1920x1080,
   with visit counting, candidate selection and the visit closure on the
-  card (phases 9-11), and a CPU Session (plain versions) against a CUDA
-  Session (kernels) in lockstep (phase 12);
+  card (phases 9-11), each step's table, frame and stats equal to a twin
+  Session's whose skip halves take the plain path, and a CPU Session (plain
+  versions) against a CUDA Session (kernels) in lockstep (phase 12);
 - K1's root-restart form (9b, ``parent_restart=False``, the reference's full
   re-descent) on the deep10 1080p primaries without a table and with the
   combined table: counts, flags and shadow counts equal to its plain
@@ -166,7 +170,7 @@ SESSION_STEPS = 24
 LOCK_RES, LOCK_DEPTH, LOCK_STEPS, LOCK_TURN = (128, 72), 8, 12, 8
 LOCK_POS = np.array([0.25, 0.35, -2.3], np.float32)
 LOCK_LOOK = np.array([-0.12, -0.17, 1.0], np.float32)
-FRAME_KERNELS = ("trace", "warp_occupancy", "raygen", "shade_encode")
+FRAME_KERNELS = ("trace", "warp_occupancy", "skip_field", "raygen", "shade_encode")
 SESSION_KERNELS = FRAME_KERNELS + ("select_candidates", "propagate_visits")
 # Procedural generation: the production chunk (bench.py:333-337) and the
 # CLI's default world (app/cli.py:240-241), then a Session over it.
@@ -193,6 +197,8 @@ KERNELS = {
               "octree_tracer_tpu/render/tracer.py:135"),
     "warp_occupancy": ("octree_tracer_tpu_torch/csrc/warp_occupancy.cu",
                        "octree_tracer_tpu/render/tracer.py:2859"),
+    "skip_field": ("octree_tracer_tpu_torch/csrc/skip_field.cu",
+                   "octree_tracer_tpu/render/skip.py:141"),
     "raygen": ("octree_tracer_tpu_torch/csrc/raygen.cu",
                "octree_tracer_tpu/render/camera.py:100"),
     "shade_encode": ("octree_tracer_tpu_torch/csrc/shade_encode.cu",
@@ -435,6 +441,102 @@ def main() -> int:
             shutil.rmtree(K1["counters_dir"], ignore_errors=True)
 
 
+def plain_skip_field(words, levels=7, occ=None, table=None):
+    """``skip.build_skip_field`` on the plain path on any device: K2's
+    occupancy (when None), then the NumPy build, copied in."""
+    from octree_tracer_tpu_torch.render import skip
+
+    if occ is None:
+        occ = skip.occupancy_from_pool(words, levels)
+    field = skip.build_skip_field_plain(occ, levels)
+    if table is None:
+        return field
+    table[1::2] = field
+    return table
+
+
+def plain_skip_session(*args, **kwargs):
+    """A Session whose table builds and skip-half rebuilds take the plain
+    path (``plain_skip_field``)."""
+    import contextlib
+
+    from octree_tracer_tpu_torch.app.session import Session
+    from octree_tracer_tpu_torch.render import skip
+
+    @contextlib.contextmanager
+    def plain():
+        kernel = skip.build_skip_field
+        skip.build_skip_field = plain_skip_field
+        try:
+            yield
+        finally:
+            skip.build_skip_field = kernel
+
+    class Plain(Session):
+        def _build_table(self, combined):
+            with plain():
+                super()._build_table(combined)
+
+        def _rebuild_skip_half(self):
+            with plain():
+                super()._rebuild_skip_half()
+
+    return Plain(*args, **kwargs)
+
+
+def skip_field_check(dev, report, words, malformed, occ, table, device_ms) -> None:
+    """Phase 4's K12: equal to its plain version bit for bit on deep10 at
+    levels 0-8, on the malformed pools at level 3 and on 5 random
+    occupancies at level 7 (passed as ``occ``); its in-place write of a
+    combined table's odd words equal to a fresh build, the warp words
+    untouched; timed alone, back to back and plain at level 7 on deep10,
+    the kernel in the form the Session launches, into a combined table's
+    odd words, and alone in its stride-1 form beside it."""
+    from octree_tracer_tpu_torch.render import skip, tracer
+
+    plain7 = plain_skip_field(words, LEVELS, occ=occ)
+    warp = tracer.warp_occupancy(words, LEVELS)[0]
+    check(torch.equal(table[1::2], plain7) and torch.equal(table[0::2], warp),
+          "the combined table differs from K2's warp words and the plain skip field")
+    cases = 0
+    for lv in range(9):
+        check(torch.equal(skip.build_skip_field(words, lv), plain_skip_field(words, lv)),
+              f"skip_field kernel differs from its plain version on deep{DEPTH} at L{lv}")
+        cases += 1
+    for name, pool in malformed.items():
+        check(torch.equal(skip.build_skip_field(pool, 3), plain_skip_field(pool, 3)),
+              f"skip_field kernel differs from its plain version on {name} at L3")
+        cases += 1
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for density in (0.001, 0.02, 0.2, 0.6, 0.95):
+        rnd = torch.rand(8 ** LEVELS, device=dev, generator=gen) < density
+        check(torch.equal(skip.build_skip_field(words, LEVELS, occ=rnd),
+                          skip.build_skip_field_plain(rnd, LEVELS)),
+              f"skip_field kernel differs from its plain version on density {density}")
+        cases += 1
+    stale = table.clone()
+    stale[1::2] = 0
+    skip.build_skip_field(words, LEVELS, table=stale)
+    check(torch.equal(stale, table), "the in-place skip half differs from a fresh table")
+    k12_bytes = skip.k12_bytes(LEVELS)
+    report["skip_field"].update(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: skip.build_skip_field(words, LEVELS, occ=occ, table=stale), 20),
+        alone_ms=device_ms(lambda: skip.build_skip_field(words, LEVELS, occ=occ, table=stale),
+                           50),
+        stride1_alone_ms=device_ms(lambda: skip.build_skip_field(words, LEVELS, occ=occ), 50),
+        plain_ms=cuda_ms(lambda: skip.build_skip_field_plain(occ, LEVELS), 3),
+        library_ms=None, **bound(k12_bytes), k12_bytes=k12_bytes,
+    )
+    r = report["skip_field"]
+    phase("4 K12", f"equal to plain at every level 0-8 on deep{DEPTH}, on {sorted(malformed)} "
+          f"at L3 and on 5 random occupancies at L{LEVELS} ({cases} cases); the in-place "
+          f"skip half equal to a fresh table's; kernel into the table's odd words alone "
+          f"{r['alone_ms']:.5f} ms (stride 1: {r['stride1_alone_ms']:.5f}), wrapper back to "
+          f"back {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({k12_bytes} bytes), plain "
+          f"{r['plain_ms']:.3f} ms")
+
+
 def run(dev: torch.device) -> int:
     from octree_tracer_tpu_torch import kernels, scenes, state
     from octree_tracer_tpu_torch.probes import k1_counters
@@ -541,6 +643,7 @@ def run(dev: torch.device) -> int:
           f"bytes; outputs only {r['outputs_bound_ms']:.5f}), plain {r['plain_ms']:.3f} ms; "
           f"combined table {table.numel()} words in {time.perf_counter() - t0:.2f} s")
     phase("4 K1", malformed_trace_check(dev, malformed))
+    skip_field_check(dev, report, words, malformed, occ_k, table, device_ms)
 
     # 5. K3 against its plain version on the bench camera, bit for bit, and
     #    on a width that is no multiple of 4 (the scalar tail); one call from
@@ -948,7 +1051,8 @@ def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci
           f"interiors closed; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms (all passes)")
 
     # 11. The Session on the card: deep10 shell world, 1080p, bench camera,
-    #     shipped defaults (deferred feedback, flags, feedback every frame).
+    #     shipped defaults (deferred feedback, flags, feedback every frame,
+    #     the skip half on), in lockstep with a twin on the plain skip path.
     t0 = time.perf_counter()
     world = scenes.shell_world(DEPTH)
     sess = Session(world, W, H, device=dev)
@@ -957,9 +1061,15 @@ def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci
     sess.settings.fov = FOV
     check(sess.use_native, "the native host engine did not build")
     setup_s = time.perf_counter() - t0
+    # Its twin builds every skip half on the plain path (K2's occupancy to
+    # the host, the NumPy build); its launches are not counted.
+    twin = plain_skip_session(scenes.shell_world(DEPTH), W, H, device=dev)
+    twin.character.pos, twin.character.look = CAM_POS.copy(), CAM_LOOK.copy()
+    twin.settings.fov = FOV
     kernels.reset_launches()
     step_ms, rode, warped_steps, ref = [], 0, [], []
     totals = {"subdivided": 0, "collapsed": 0, "patched": 0}
+    tables = 0
     for i in range(SESSION_STEPS):
         t0 = time.perf_counter()
         img, _, stats = sess.step()
@@ -971,6 +1081,17 @@ def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci
             warped_steps.append(i)
         for k in totals:
             totals[k] += stats[k]
+        counted = dict(kernels.LAUNCHES)
+        img_p, _, stats_p = twin.step()
+        kernels.LAUNCHES.update(counted)
+        a, b = sess._warp_table, twin._warp_table
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f"step {i}: the table differs from the plain-path twin's")
+        check(stats == stats_p and torch.equal(img, img_p),
+              f"step {i}: the frame or stats differ from the plain-path twin's")
+        tables += a is not None
+    check(tables > 0, "no step had a table")
+    del twin
     torch.cuda.synchronize()
     launches = {k: kernels.LAUNCHES[k] for k in SESSION_KERNELS}
     for k, v in launches.items():
@@ -991,7 +1112,8 @@ def session_phases(dev, report, words, words_np, origins, dirs, table, res_k, ci
           f"bucket {sess.device_words.shape[0]}, nodes {n_nodes}, holes {holes:.2f}%, "
           f"max depth {sess.octree.max_depth}; totals {totals}; counted frames on "
           f"the table {rode} (steps {warped_steps}); stale dropped "
-          f"{sess.stale_dropped}; launches {launches}; step ms "
+          f"{sess.stale_dropped}; launches {launches}; tables equal to the plain-path "
+          f"twin's at {tables} steps; step ms "
           f"{[round(t, 1) for t in step_ms]}")
     del sess, world
 
@@ -1032,10 +1154,11 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     reference's full re-descent) on the deep10 1080p primaries, without a
     table and with the combined table: counts, flags (the plain counts'
     nonzero set) and the shadow mode's counts equal to the plain version on
-    every field and slot, every field
-    equal to the parent form's (phase 6), the primary pass timed alone in
-    both forms in turn; then the counted frame in the root form, its launches
-    counted and its visits equal to the passes' counts."""
+    every field and slot, every field equal to the counting parent form's
+    (with the combined table a counted jump counts a root descent's steps,
+    where phase 6's uncounted pass counts one), the primary pass timed alone
+    in both forms in turn; then the counted frame in the root form, its
+    launches counted and its visits equal to the passes' counts."""
     from octree_tracer_tpu_torch import kernels
     from octree_tracer_tpu_torch.probes.gather_probe import cuda_ms as device_ms
     from octree_tracer_tpu_torch.probes.gather_probe import time_in_turn
@@ -1051,7 +1174,8 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     entry = {}
     for what, t in (("none", None), ("combined", table)):
         kw = dict(warp_table=t, parent_restart=False)
-        parent = res_k if t is not None else tracer.trace(words, origins, dirs)
+        parent = tracer.trace(words, origins, dirs, warp_table=t,
+                              visits=torch.zeros(n_words, dtype=torch.int32, device=dev))
         plain_s, errs, exact = {}, [], []
         v_p = torch.zeros(n_words, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
@@ -1169,7 +1293,10 @@ def root_restart_phase(dev, report, words, origins, dirs, table, res_k, card) ->
     launches = {k: kernels.LAUNCHES[k] for k in FRAME_KERNELS}
     check(launches["trace"] == 2 and launches["shade_encode"] == 1,
           f"the root-restart frame's launches: {launches}")
-    img_0, _, _ = tracer.render_frame(words, origins[0], dirs, warp_table=table, u8_image=True)
+    # The counted frame in the parent form: a counted jump counts a root
+    # descent's steps, so an uncounted frame may force fewer rays.
+    img_0, _, _ = tracer.render_frame(words, origins[0], dirs, warp_table=table, u8_image=True,
+                                      with_visits=True)
     check(torch.equal(img_r, img_0), "the root-restart frame differs from the parent form's")
     check(torch.equal(vis_r, frame_visits), "the root-restart frame's visits differ from its "
           "passes' counts")

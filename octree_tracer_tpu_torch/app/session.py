@@ -28,7 +28,12 @@ Differences from the JAX Session:
   (``tracer._jump_slots``, K1's ``mark_jump``), so the closure leaves the
   interiors a root descent reads: the JAX Session's jumps mark nothing and
   it lists the interiors only they cross to collapse, which the reference
-  rule does not.
+  rule does not. Each such jump also counts the boundary steps a root
+  descent takes across it (``tracer._jump_steps``), where JAX's counts
+  one, and shrinks near the step cap, so the frame forces the rays the
+  reference forces, at its positions: with one step a jump, late fly-in
+  frames left thousands of grazing rays short of the cap, whose hits and
+  shadows then moved pixels and candidates.
 
 The device-pool bucket ladder stays: the selection's index modulus, its
 rotation offset and the warp eligibility all read the device pool's length,
@@ -233,13 +238,16 @@ class Session:
     def _build_table(self, combined: bool) -> None:
         build = skip.build_warp_skip_table if combined else tracer.build_warp_table
         with timing.span("session.warp_build"):
+            timing.count("session.warp_builds")
             self._warp_table = build(self.device_words, WARP_LEVELS)
 
     def _rebuild_skip_half(self) -> None:
+        """The current pool's skip words into the table's odd words in
+        place (K2 and K12 on the card); the warp words stay."""
         levels = tracer.warp_table_levels(self._warp_table)
         with timing.span("session.skip_rebuild"):
             timing.count("session.skip_rebuilds")
-            self._warp_table[1::2] = skip.build_skip_field(self.device_words, levels)
+            skip.build_skip_field(self.device_words, levels, table=self._warp_table)
 
     def _auto_warp(self, adaptive: bool):
         """The frame's warp table, or None: pools below

@@ -108,7 +108,10 @@
 // cell the jumped segment crosses (`mark_jump`), as a root descent there reads
 // it, so that K6's closure leaves a root descent's interior zero-set: a jump
 // that marks nothing (JAX's) leaves the interiors only it crosses unread, and
-// the Session lists them to collapse.
+// the Session lists them to collapse. It also counts the boundary steps the
+// descent takes there, and its cube shrinks near the step cap, so that the
+// counted frame forces the rays a root descent forces: a jump counted as one
+// step (JAX's, and the uncounted forms') carries grazing rays past the cap.
 #include <climits>
 
 #include "common.cuh"
@@ -271,34 +274,44 @@ __device__ __forceinline__ int32_t cell_slot(const uint32_t* __restrict__ table,
   return slot;
 }
 
-// A counted skip jump's marks (render/tracer.py `_jump_slots`): a root
-// descent through the jumped segment reads, in every cell it crosses, the
-// empty leaf that covers the cell (a cube holds no node below level L) and
-// its ancestors. The walk steps from cell to cell by each cell's exit planes,
-// (plane - p) / d as the jump's own planes, every tied axis at once, until it
-// leaves the cube of `skw` cells anchored at v's cell or the grid, and marks
+// A counted skip jump's marks and steps (render/tracer.py `_jump_slots`): a
+// root descent through the jumped segment reads, in every cell it crosses,
+// the empty leaf that covers the cell (a cube holds no node below level L)
+// and its ancestors, and takes one boundary step out of each such leaf. The
+// walk starts at the cell that holds v under the descent's boundary rule
+// (the cube's anchor, v's cell by its floor, may miss it on a face), steps
+// from cell to cell by each cell's exit planes, (plane - p) / d as the
+// jump's own planes, every tied axis at once, until it leaves the cube of
+// `skw` cells anchored at v's floor cell (a step at or past the jump's exit
+// t, `exit_t`: the cube's planes are cells' planes) or the grid, and marks
 // the covering slot of each cell entered outside the leaf it jumps from
-// (centre lc, half side lh); K6's closure marks the ancestors. Only the
-// counting forms with a combined table take it (four blocks an SM, below).
-template <int VISITS>
-__device__ __forceinline__ void mark_jump(const uint32_t* __restrict__ table,
-                                          const uint32_t* __restrict__ words, int32_t n_words,
-                                          int levels, int32_t* visits, const float p[3],
-                                          const float d[3], const float rs[3],
-                                          const float v[3], int32_t skw, const float lc[3],
-                                          float lh) {
+// (slot `leaf_slot`, centre lc, half side lh); K6's closure marks the
+// ancestors.
+// Returns the steps the jump stands for: each cell entered whose covering
+// slot differs from the one before (the leaf's at the start), the first cell
+// past the cube included (outside the grid is no slot). Only the counting
+// forms with a combined table take it (four blocks an SM, below).
+template <bool STRICT, int VISITS>
+__device__ __forceinline__ int32_t mark_jump(const uint32_t* __restrict__ table,
+                                             const uint32_t* __restrict__ words,
+                                             int32_t n_words, int levels, int32_t* visits,
+                                             const float p[3], const float d[3],
+                                             const float rs[3], const float v[3], int32_t skw,
+                                             float exit_t, const float lc[3], float lh,
+                                             int32_t leaf_slot) {
   const int side = 1 << levels;
   const float half_side = static_cast<float>(side) * 0.5f;
   const float last = static_cast<float>(side - 1);
   const float cw = 2.0f / static_cast<float>(side);
-  int c[3], s[3], lo[3], hi[3];
+  int c[3];
   for (int k = 0; k < 3; ++k) {
-    c[k] = static_cast<int>(cell_f(v[k], half_side, last));
-    s[k] = rs[k] > 0.0f ? 1 : -1;
-    const int edge = c[k] + s[k] * (skw - 1);
-    lo[k] = max(min(c[k], edge), 0);
-    hi[k] = min(max(c[k], edge), side - 1);
+    const float cf = cell_f(v[k], half_side, last);
+    const float low = cf * cw - 1.0f;  // exact
+    const bool below = STRICT ? v[k] <= low : v[k] < low;
+    const bool above = STRICT ? v[k] > low + cw : v[k] >= low + cw;
+    c[k] = static_cast<int>(cf) + (above && cf < last) - (below && cf > 0.0f);
   }
+  int32_t prev = leaf_slot, n = 0;
   for (int it = 0; it < 3 * skw; ++it) {
     float tt[3];
     for (int k = 0; k < 3; ++k) {
@@ -306,20 +319,24 @@ __device__ __forceinline__ void mark_jump(const uint32_t* __restrict__ table,
       tt[k] = ((rs[k] > 0.0f ? clo + cw : clo) - p[k]) / d[k];
     }
     const float tm = fminf(fminf(tt[0], tt[1]), tt[2]);
-    bool live = true;
-    for (int k = 0; k < 3; ++k) {
-      if (tt[k] <= tm) c[k] += s[k];
-      live = live && c[k] >= lo[k] && c[k] <= hi[k];
-    }
-    if (!live) break;
+    bool in_grid = true, in_leaf = true;
     float cc[3];
-    bool in_leaf = true;
     for (int k = 0; k < 3; ++k) {
+      if (tt[k] <= tm) c[k] += rs[k] > 0.0f ? 1 : -1;
+      in_grid = in_grid && static_cast<unsigned>(c[k]) < static_cast<unsigned>(side);
       cc[k] = (static_cast<float>(c[k]) + 0.5f) * cw - 1.0f;
       in_leaf = in_leaf && cc[k] > lc[k] - lh && cc[k] < lc[k] + lh;
     }
-    if (!in_leaf) mark<VISITS>(visits, cell_slot(table, words, n_words, levels, c, cc), n_words);
+    const bool in_cube = in_grid && tm < exit_t;
+    const int32_t slot = in_cube && in_leaf ? prev
+                         : in_grid           ? cell_slot(table, words, n_words, levels, c, cc)
+                                             : -1;
+    n += slot != prev;
+    if (!in_cube) break;
+    if (!in_leaf) mark<VISITS>(visits, slot, n_words);
+    prev = slot;
   }
+  return n;
 }
 
 // The root form's counting and flag forms: every re-descent from the root
@@ -666,22 +683,29 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
         break;
       }
 
-      // Empty leaf: boundary step to the leaf's exit (or the skip cube's).
+      // Empty leaf: boundary step to the leaf's exit (or the skip cube's);
+      // `taken`: the steps it stands for, one but for a counted jump's.
       float t[3];
       for (int k = 0; k < 3; ++k) t[k] = ((np[k] - p[k]) + rs[k] * inv1) / d[k];
-      if (kCombined && skw > 0) {
-        const float skb = static_cast<float>(skw);
+      int32_t taken = 1;
+      // A counted jump stands for a root descent's steps across it, at most
+      // 3 * side - 2: its cube shrinks near the step cap, so that the cap
+      // falls where the descent's does.
+      const int32_t side_j = VISITS != 0 ? min(skw, (a.max_steps - steps + 2) / 3) : skw;
+      if (kCombined && side_j > 0) {
+        const float skb = static_cast<float>(side_j);
         float st[3];
         for (int k = 0; k < 3; ++k) {
           const float clo = cell_f(v[k], half_side, last) * cw - 1.0f;
           const float plane = rs[k] > 0.0f ? clo + skb * cw : (clo + cw) - skb * cw;
           st[k] = (plane - p[k]) / d[k];
         }
-        if (fminf(fminf(st[0], st[1]), st[2]) > fminf(fminf(t[0], t[1]), t[2])) {
+        const float exit_t = fminf(fminf(st[0], st[1]), st[2]);
+        if (exit_t > fminf(fminf(t[0], t[1]), t[2])) {
           for (int k = 0; k < 3; ++k) t[k] = st[k];
           if constexpr (VISITS != 0) {
-            mark_jump<VISITS>(a.table, words, n_words, a.levels, a.visits, p, d, rs, v, skw,
-                              np, inv1);
+            taken = mark_jump<STRICT, VISITS>(a.table, words, n_words, a.levels, a.visits, p, d,
+                                              rs, v, side_j, exit_t, np, inv1, idx);
           }
         }
       }
@@ -695,12 +719,12 @@ __device__ __forceinline__ void trace_ray(const TraceArgs& a, int32_t i, const T
         nv[k] = (p[k] + d[k] * tc) - nn[k] * 2e-6f;
         inb = inb && nv[k] >= -1.0f && nv[k] < 1.0f;
       }
+      const int32_t steps_new = steps + taken;
       if (!inb) {  // left the root cube: a miss with zero pos and normal
-        out_steps = steps;
+        out_steps = steps_new - 1;
         out_depth = depth1;
         break;
       }
-      const int32_t steps_new = steps + 1;
       if (steps_new > a.max_steps) {  // the step cap forces a hit
         hit = true;
         forced = true;

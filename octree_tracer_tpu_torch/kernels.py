@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"trace": 0, "warp_occupancy": 0, "raygen": 0, "shade_encode": 0,
             "select_candidates": 0, "propagate_visits": 0, "block_grid": 0,
-            "gather_rows": 0, "add_scalar": 0, "brick_rows": 0, "beam_start": 0}
+            "gather_rows": 0, "add_scalar": 0, "brick_rows": 0, "beam_start": 0,
+            "skip_field": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U32 = ctypes.c_uint32
@@ -57,6 +58,7 @@ _SIGNATURES = {
     "ot_select_candidates": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _I64, _P, _I],
     "ot_propagate_visits": [_P, _I64, _P, _P, _P],
     "ot_brick_rows": [_P, _I64, _I, _P, _P, _P],
+    "ot_skip_field": [_P, _I, _I, _P, _P, _I64, _P],
     "ot_beam_start": [_P, _I64, _P, _P, _I, _I, _I, _I, _I] + [_P] * 6,
     "ot_block_grid": [_F, _F, _F, _F, _I, _P, _P],
     "ot_gather_rows": [_P, _P, _I64, _P, _I, _I, _I64, _I64, _I, _I64, _I, _P],

@@ -7,10 +7,12 @@ a 4-bit codebook nibble (0..12, 16, 24, 32); eight nibbles make one u32 per
 cell. The combined table interleaves each cell's warp word (at 2c) with its
 skip word (at 2c+1), so the traversal fetches both in one 32-byte row.
 
-The occupancy comes from kernel K2 (``tracer.warp_occupancy``); the cube
-compositions stay host NumPy, as in the JAX package (``skip.py:141-147``).
-``decode_skip`` is the codebook that the traversal's plain version reads
-(``tracer._decode_skip``) and kernel K1 mirrors (``csrc/trace.cu``
+The occupancy comes from kernel K2 (``tracer.warp_occupancy``) and the skip
+words from kernel K12 (``csrc/skip_field.cu``), both on the card, where JAX
+composes the cubes in host NumPy (``skip.py:141-147``);
+``build_skip_field_plain`` is that NumPy build, the plain version on the
+CPU. ``decode_skip`` is the codebook that the traversal's plain version
+reads (``tracer._decode_skip``) and kernel K1 mirrors (``csrc/trace.cu``
 ``decode_skip``). This module takes ``tracer`` at call time, because
 ``tracer`` imports the codebook from here.
 """
@@ -19,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 SKIP_CAP = 32  # largest encodable cube side (codebook 0..12, 16, 24, 32)
 
@@ -46,10 +50,15 @@ def occupancy_from_pool(words: torch.Tensor, levels: int) -> torch.Tensor:
     return warp_occupancy(words, levels)[1]
 
 
-def build_skip_field(words: torch.Tensor, levels: int = 7,
-                     occ: torch.Tensor | None = None) -> torch.Tensor:
-    """int32[8^levels] of u32 skip words (nibble of octant o = sx*4 + sy*2 +
-    sz at bits [4o, 4o+4)), on ``words``' device.
+def k12_bytes(levels: int) -> int:
+    """Bytes K12 must move for the 2^levels grid: the occupancy byte read
+    and the skip word written, 5 a cell."""
+    return 5 * 8 ** levels
+
+
+def build_skip_field_plain(occ: torch.Tensor, levels: int) -> torch.Tensor:
+    """Plain version of kernel K12: the JAX package's NumPy build on the
+    host, int32[8^levels] of u32 skip words on ``occ``'s device.
 
     Empty-cube indicators with overlap-doubling, per octant (axes flipped so
     the octant points +,+,+): E_{j+k} is the AND of E_k at the eight offsets
@@ -57,8 +66,6 @@ def build_skip_field(words: torch.Tensor, levels: int = 7,
     the count of true codebook indicators, the floor-quantized cube side.
     Outside the root cube counts as empty."""
     side = 1 << levels
-    if occ is None:
-        occ = occupancy_from_pool(words, levels)
     occ3 = occ.cpu().numpy().reshape(side, side, side)
     out = np.zeros(side ** 3, dtype=np.uint32)
 
@@ -89,15 +96,56 @@ def build_skip_field(words: torch.Tensor, levels: int = 7,
         if neg:
             nib = np.flip(nib, axis=neg)
         out |= nib.reshape(-1) << np.uint32(4 * oct_)
-    return torch.from_numpy(out.view(np.int32)).to(words.device)
+    return torch.from_numpy(out.view(np.int32)).to(occ.device)
+
+
+def build_skip_field(words: torch.Tensor, levels: int = 7,
+                     occ: torch.Tensor | None = None,
+                     table: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[8^levels] of u32 skip words (nibble of octant o = sx*4 + sy*2 +
+    sz at bits [4o, 4o+4)), on ``words``' device. ``occ`` is the grid's
+    occupancy (``occupancy_from_pool``), computed when None. With ``table``,
+    a combined table of the same grid (int32[2 * 8^levels]), the words go
+    to its odd words in place, its warp words untouched, and ``table`` is
+    returned.
+
+    On a CUDA device this launches kernel K2 (when ``occ`` is None), then
+    kernel K12; on the CPU it is ``build_skip_field_plain``."""
+    if not 0 <= levels <= 9:
+        raise ValueError(f"levels must be in [0, 9], got {levels}")
+    dev = words.device
+    n = 1 << (3 * levels)
+    if occ is None:
+        occ = occupancy_from_pool(words, levels)
+    kernels.check(occ, "occ", torch.bool, (n,), dev)
+    if table is not None:
+        kernels.check(table, "table", torch.int32, (2 * n,), dev)
+    if not kernels.uses_kernel(dev):
+        skip = build_skip_field_plain(occ, levels)
+        if table is None:
+            return skip
+        table[1::2] = skip
+        return table
+    out = torch.empty(n, dtype=torch.int32, device=dev) if table is None else table
+    # The skip word of cell c at out[c], or at table[2c + 1]: 4 bytes in.
+    stride, offset = (1, 0) if table is None else (2, 4)
+    side = 1 << levels
+    # K12's occupancy bits: a word of 32 cells along z, side / 32 a column.
+    bits = torch.empty(side * side * max(side // 32, 1), dtype=torch.int32, device=dev)
+    kernels.launch("skip_field", "ot_skip_field", dev, kernels.ptr(occ), levels,
+                   int(occ.data_ptr() % 16 == 0), kernels.ptr(bits), out.data_ptr() + offset,
+                   stride)
+    return out
 
 
 def build_warp_skip_table(words: torch.Tensor, levels: int = 7) -> torch.Tensor:
     """Combined table int32[2 * 8^levels]: cell c's warp word at 2c and its
     skip word at 2c+1. One K2 launch gives both the warp words and the
-    occupancy the skip field is built from."""
+    occupancy the skip field is built from; the warp words go in with one
+    device copy, and K12 writes the skip words in place."""
     from .tracer import warp_occupancy
 
     warp, occ = warp_occupancy(words, levels)
-    skip = build_skip_field(words, levels, occ=occ)
-    return torch.stack([warp, skip], dim=1).reshape(-1)
+    table = torch.empty(2 * warp.shape[0], dtype=torch.int32, device=words.device)
+    table[0::2] = warp
+    return build_skip_field(words, levels, occ=occ, table=table)

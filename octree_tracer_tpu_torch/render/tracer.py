@@ -272,42 +272,81 @@ def _cell_slots(table: torch.Tensor, levels: int, pool: torch.Tensor,
     return slot
 
 
-def _jump_slots(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
-                leaf_c, leaf_h) -> torch.Tensor:
-    """The slots a counted skip jump marks, for rays that take one from
-    position ``v`` (entry ``p``, direction ``d``, signs ``rs``) across the
-    cube of ``skw`` cells anchored at ``v``'s cell, out of the empty leaf of
+def _jump_walk(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
+               leaf_c, leaf_h, leaf_slot, strict: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The walk of K1's ``mark_jump`` over every jumping ray at once: the
+    slots a counted jump marks (``_jump_slots``) and the steps it stands for
+    (``_jump_steps``), for rays that take one from position ``v`` (entry
+    ``p``, direction ``d``, signs ``rs``) across the cube of ``skw`` cells
+    anchored at ``v``'s cell, out of the empty leaf of slot ``leaf_slot``,
     centre ``leaf_c`` and half side ``leaf_h``.
 
     A root descent through the jumped segment reads, in every cell it
     crosses, the empty leaf that covers the cell (the cube holds no node
-    below the table's level) and that leaf's ancestors. The walk is K1's
-    ``mark_jump`` loop, line for line, over every ray at once: it steps from
-    cell to cell by the exit planes of each cell, (plane - p) / d as the
-    jump's own planes, every tied axis at once, until it leaves the cube or
-    the grid, and marks the covering slot (``_cell_slots``) of each cell
-    entered outside the leaf; the visit closure then marks the ancestors."""
+    below the table's level) and that leaf's ancestors, and takes one
+    boundary step out of each such leaf. From the cell that holds ``v``
+    under the descent's boundary rule (``strict``: (lo, hi]), which the
+    cube's anchor, ``v``'s cell by its floor, may miss on a face, the walk
+    steps from cell to cell by the exit planes of each cell, (plane - p) /
+    d as the jump's own planes, every tied axis at once, until it leaves
+    the cube (a step at or past the jump's exit, the cube's planes being
+    cells' planes) or the grid. It marks the covering slot
+    (``_cell_slots``) of each cell entered outside the leaf; the visit
+    closure then marks the ancestors. Each cell entered whose covering slot
+    differs from the one before (the leaf's, at the start), the first cell
+    past the cube included (outside the grid is no slot), is one of the
+    root descent's steps: int64[m] of them a ray, at least 1."""
     side = 1 << levels
     cw = 2.0 / side
-    c = torch.floor((v + 1.0) * (side / 2.0)).clamp(0, side - 1).long()
+    c = torch.floor((v + 1.0) * (side / 2.0)).clamp(0, side - 1)
+    clo = c * cw - 1.0
+    skb = skw.to(_F32)[:, None]
+    exit_t = ((torch.where(rs > 0, clo + skb * cw, (clo + cw) - skb * cw) - p) / d).amin(dim=1)
+    c = c.long()
     s = torch.where(rs > 0, 1, -1)
-    far = c + s * (skw - 1)[:, None]
-    lo = torch.minimum(c, far).clamp(min=0)
-    hi = torch.maximum(c, far).clamp(max=side - 1)
+    below = (v <= clo) if strict else (v < clo)
+    above = (v > clo + cw) if strict else (v >= clo + cw)
+    c = c - (below & (c > 0)).long() + (above & (c < side - 1)).long()
     live = torch.ones_like(skw, dtype=torch.bool)
-    entered = []
+    prev = leaf_slot.clone()
+    n = torch.zeros_like(skw)
+    marked = []
     for it in range(3 * int(skw.max())):
         clo = c.to(_F32) * cw - 1.0
         tt = (torch.where(rs > 0, clo + cw, clo) - p) / d
-        c = c + s * (tt <= tt.amin(dim=1, keepdim=True))
-        live = live & (it < 3 * skw) & torch.all((c >= lo) & (c <= hi), dim=1)
-        if not bool(live.any()):
-            break
+        tm = tt.amin(dim=1, keepdim=True)
+        c = c + s * (tt <= tm)
+        in_grid = torch.all((c >= 0) & (c < side), dim=1)
+        in_cube = (it < 3 * skw) & (tm[:, 0] < exit_t) & in_grid
+        on = live & in_cube
+        land = live & ~in_cube & in_grid
         cc = (c.to(_F32) + 0.5) * cw - 1.0
         in_leaf = torch.all((cc > leaf_c - leaf_h) & (cc < leaf_c + leaf_h), dim=1)
-        entered.append(c[live & ~in_leaf])
-    cells = torch.cat(entered) if entered else c[:0]
-    return _cell_slots(table, levels, pool, cells)
+        slot = torch.where(on & in_leaf, prev, -1)
+        look = torch.nonzero((on & ~in_leaf) | land).squeeze(1)
+        slot[look] = _cell_slots(table, levels, pool, c[look])
+        n += live & (slot != prev)
+        marked.append(slot[on & ~in_leaf])
+        prev = slot
+        live = on
+        if not bool(live.any()):
+            break
+    return (torch.cat(marked) if marked else c.new_zeros(0)), n
+
+
+def _jump_slots(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
+                leaf_c, leaf_h, strict: bool = True) -> torch.Tensor:
+    """The slots a counted skip jump marks (``_jump_walk``)."""
+    return _jump_walk(table, levels, pool, p, d, rs, v, skw, leaf_c, leaf_h,
+                      torch.full_like(skw, -1), strict)[0]
+
+
+def _jump_steps(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
+                leaf_c, leaf_h, leaf_slot, strict: bool) -> torch.Tensor:
+    """The root descent's steps that a counted skip jump stands for
+    (``_jump_walk``)."""
+    return _jump_walk(table, levels, pool, p, d, rs, v, skw, leaf_c, leaf_h, leaf_slot,
+                      strict)[1]
 
 
 def _pool_rows(words: torch.Tensor) -> torch.Tensor:
@@ -539,21 +578,32 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         if a is not None:
             hit_now, interior, stepping = hit_now & a, interior & a, stepping & a
 
-        # Boundary step (used by the stepping rays).
+        # Boundary step (used by the stepping rays); `taken`: the steps each
+        # stands for, one but for a counted jump's.
         t = ((np_ - p) + rs * inv1) / d
+        taken = torch.ones_like(steps)
         if combined:
-            skb = skw.to(_F32)[:, None]
+            side_j = skw
+            if visits is not None:
+                # A counted jump stands for a root descent's steps across it,
+                # at most 3 * side - 2: its cube shrinks near the step cap, so
+                # that the cap falls where the descent's does.
+                side_j = torch.minimum(skw, torch.div(max_steps - steps + 2, 3,
+                                                      rounding_mode="floor"))
+            skb = side_j.to(_F32)[:, None]
             cw = 2.0 / side
             ci = torch.floor((v + 1.0) * (side / 2.0)).clamp(0, side - 1)
             clo = ci * cw - 1.0
             plane = torch.where(rs > 0, clo + skb * cw, (clo + cw) - skb * cw)
             st = (plane - p) / d
-            sk_use = (skw > 0) & (st.amin(dim=1) > t.amin(dim=1))
+            sk_use = (side_j > 0) & (st.amin(dim=1) > t.amin(dim=1))
             t = torch.where(sk_use[:, None], st, t)
             jump = sk_use & stepping
             if visits is not None and bool(jump.any()):
-                mark(_jump_slots(table, levels, pool, p[jump], d[jump], rs[jump], v[jump],
-                                 skw[jump], np_[jump], inv1[jump]))
+                walk = (table, levels, pool, p[jump], d[jump], rs[jump], v[jump],
+                        side_j[jump], np_[jump], inv1[jump])
+                mark(_jump_slots(*walk, strict=strict_descent))
+                taken[jump] = _jump_steps(*walk, idx[jump], strict_descent)
         tx, ty, tz = t.unbind(1)
         face = torch.stack([tx <= torch.minimum(ty, tz),
                             ty <= torch.minimum(tz, tx),
@@ -563,7 +613,7 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         nv = (p + d * t_cur[:, None]) - nn * _EPS_NUDGE
         inb = _in_bounds(nv)
         oob = stepping & ~inb
-        steps_new = steps + 1
+        steps_new = steps + taken
         over = stepping & inb & (steps_new > max_steps)
         go = stepping & inb & ~over
 
@@ -576,7 +626,7 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
         out_steps[r] = steps[hit_now].to(_I32)
         out_depth[r] = depth1[hit_now].to(_I32)
         r = ids[oob]
-        out_steps[r] = steps[oob].to(_I32)
+        out_steps[r] = (steps_new[oob] - 1).to(_I32)
         out_depth[r] = depth1[oob].to(_I32)
         r = ids[over]
         hit[r] = True
@@ -776,7 +826,11 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     1 under ``visit_flags``; a skip jump of a combined table also marks the
     empty leaf that covers each table cell it crosses (``_jump_slots``),
     which a root descent reads there, so that the visit closure leaves a
-    root descent's interior zero-set. ``parent_restart=False`` takes the
+    root descent's interior zero-set, and counts the boundary steps a root
+    descent takes across it (``_jump_steps``), its cube shrinking near
+    ``max_steps`` so that no jump crosses it: the counted ``steps`` and the
+    rays forced at the cap are the trace's without the jumps. Uncounted, a
+    jump counts one step, as in JAX. ``parent_restart=False`` takes the
     reference's full re-descent after every boundary step (from the warp
     cell where the table has one, else from the root), the only form whose
     visit counts have the reference counter's magnitudes; hits are the same

@@ -7,9 +7,12 @@ which JAX's jump leaves unread, so after the visit closure the counted frame
 leaves the interior zero-set of a root descent, and the Session's collapse
 decisions are the reference's. Hits, images and every mark of a slot that
 is not an empty leaf stay JAX's; on empty leaves the port's marks are JAX's
-and the jumps'. Where the pool is well formed, the closed zero-set and the
-filled-leaf counts are held against the plain reference's root descent
-(``portbench/reference/trace.py``).
+and the jumps'. A counted jump also counts the boundary steps that a root
+descent takes across it (``tracer._jump_steps``), where JAX's counts one,
+so the counted ``steps`` are JAX's on the same table with its skip half
+zeroed (``skip_free``), which takes every one of those steps. Where the pool
+is well formed, the closed zero-set and the filled-leaf counts are held
+against the plain reference's root descent (``portbench/reference/trace.py``).
 """
 
 import sys
@@ -34,6 +37,15 @@ def kinds(words: np.ndarray):
     payload = words >> np.uint32(4)
     return (payload > VOXEL_OFFSET, payload == VOXEL_OFFSET,
             (payload < VOXEL_OFFSET) & (words != 0))
+
+
+def skip_free(table) -> np.ndarray:
+    """A copy of the combined warp+skip ``table`` with its skip half zeroed:
+    a trace that rides it takes no jump, so its ``steps`` are the ones a
+    counted trace on ``table`` reports."""
+    out = np.array(table, copy=True)
+    out[1::2] = 0
+    return out
 
 
 def assert_jax_marks_with_jumps(words, v, vj, exact: bool = True) -> None:

@@ -15,8 +15,9 @@ only form whose visit counts have the reference counter's magnitudes.
   inside, so it resumes some rays at their warp cell where the port starts
   them at the root. Under the combined table a counted jump also marks the
   empty leaves of the cells it crosses, which JAX's leaves unread
-  (``jump_marks``): there the counts are JAX's but on empty leaves, and the
-  closed zero-set is the plain reference's.
+  (``jump_marks``): there the counts are JAX's but on empty leaves, the
+  steps are a root descent's, and the closed zero-set is the plain
+  reference's.
 - Against the oracle, which always re-descends from the root: counts equal
   on the analytic scene of ``tests/test_tracer.py:145-163``.
 - Against the parent form: every field bit for bit, filled-leaf counts and
@@ -33,7 +34,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jump_marks import assert_jax_marks_with_jumps, assert_reference_zero_set, reference_visits
+from jump_marks import (assert_jax_marks_with_jumps, assert_reference_zero_set,
+                        reference_visits, skip_free)
 
 from octree_tracer_tpu.core import CpuOctree as JCpuOctree
 from octree_tracer_tpu.core import pack_rgb as jpack_rgb
@@ -127,8 +129,8 @@ def _assert_exact(a, b):
 def test_root_restart_equals_jax(scene, table, strict, flags):
     """Every field and every visit mark equal to JAX ``trace(parent_restart=
     False, with_visits=True)``: no table, a warp table and a combined table
-    (but its jumps' marks of empty leaves, the module docstring), strict and
-    ``>=`` descent, counts and flags."""
+    (but its jumps' marks of empty leaves and steps, the module docstring),
+    strict and ``>=`` descent, counts and flags."""
     words, tab = _words(scene), _table(scene, table)
     _, _, origins, dirs = _rays(INSIDE[scene])
     visits = torch.zeros(words.shape[0], dtype=torch.int32)
@@ -136,6 +138,9 @@ def test_root_restart_equals_jax(scene, table, strict, flags):
               parent_restart=False)
     b, expect = _jax(words, origins, dirs, tab, strict_descent=strict, with_visits=True,
                      visit_flags=flags, parent_restart=False)
+    if table == "combined":
+        b["steps"] = _jax(words, origins, dirs, skip_free(tab), strict_descent=strict,
+                          parent_restart=False)[0]["steps"]
     _assert_exact(a, b)
     if table == "combined":
         assert_jax_marks_with_jumps(words, visits.numpy(), expect)
@@ -305,7 +310,7 @@ def test_render_frame_root_restart_matches_jax_modes(mode, table, cam, flags):
     takes neither a table nor flags). The staged frame re-descends per ray as
     ``trace`` does, so it is held exactly: every visit, with the combined
     table, from inside the root cube, but the jumps' marks of empty leaves
-    (the module docstring). The beam frame shares a block's
+    and steps (the module docstring). The beam frame shares a block's
     descent and counts its shared visits by the block (tracer.py:1242-1253),
     so interior magnitudes differ by design: it is held to the two
     invariants that the LOD thresholds read, filled-leaf counts exact and
@@ -320,7 +325,13 @@ def test_render_frame_root_restart_matches_jax_modes(mode, table, cam, flags):
         jnp.asarray(jtracer.DEFAULT_SUN), with_visits=True, visit_flags=flags,
         mode=mode, parent_restart=False,
         warp_table=None if tab is None else jnp.asarray(tab))
-    _assert_exact(ttracer.to_numpy(res), ttracer.to_numpy(res_j))
+    b = ttracer.to_numpy(res_j)
+    if tab is not None:
+        b["steps"] = ttracer.to_numpy(jtracer.render_frame(
+            jnp.asarray(words), jnp.asarray(origin), jnp.asarray(d_img),
+            jnp.asarray(jtracer.DEFAULT_SUN), mode=mode, parent_restart=False,
+            warp_table=jnp.asarray(skip_free(tab)))[1])["steps"]
+    _assert_exact(ttracer.to_numpy(res), b)
     np.testing.assert_allclose(img.numpy(), np.asarray(img_j), rtol=1e-6, atol=1e-7)
     v, vj = visits.numpy(), np.asarray(visits_j)
     if mode == "staged":
@@ -385,7 +396,7 @@ def test_malformed_pool_root_restart_equals_jax(pool, table):
     """Pointers past the pool's end, in the root form: the clamped row reads
     and the dropped marks of JAX's row gather and scatter, every field and
     count equal to JAX's, but the combined table's jump marks of empty
-    leaves (the module docstring)."""
+    leaves and steps (the module docstring)."""
     words = MALFORMED[pool]
     tab = None if table == "none" else np.asarray(
         jskip.build_warp_skip_table(jnp.asarray(words), 3))
@@ -393,6 +404,8 @@ def test_malformed_pool_root_restart_equals_jax(pool, table):
     visits = torch.zeros(words.shape[0], dtype=torch.int32)
     a = _port(words, origins, dirs, tab, visits, parent_restart=False)
     b, expect = _jax(words, origins, dirs, tab, with_visits=True, parent_restart=False)
+    if tab is not None:
+        b["steps"] = _jax(words, origins, dirs, skip_free(tab), parent_restart=False)[0]["steps"]
     _assert_exact(a, b)
     if tab is None:
         np.testing.assert_array_equal(visits.numpy(), expect)

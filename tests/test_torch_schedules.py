@@ -37,7 +37,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jump_marks import assert_jax_marks_with_jumps, assert_reference_zero_set, reference_visits
+from jump_marks import (assert_jax_marks_with_jumps, assert_reference_zero_set,
+                        reference_visits, skip_free)
 
 from octree_tracer_tpu.adaptive import feedback as jfeedback
 from octree_tracer_tpu.render import camera as jcam
@@ -227,8 +228,8 @@ def test_beam_start_depth_cap_and_checks():
 def test_trace_start_equals_jax(scene, table, restart):
     """JAX's beam starts (block 8) into both traces; every field and every
     visit count equal, but the combined table's jump marks of empty leaves
-    (``jump_marks``), under which the closure leaves the reference's
-    zero-set."""
+    and steps (``jump_marks``), under which the closure leaves the
+    reference's zero-set."""
     words = _words(scene)
     o, d = _rays("inside")
     (ji, jp, jd), _ = jtracer.beam_start(jnp.asarray(words), jnp.asarray(o), jnp.asarray(d),
@@ -247,7 +248,12 @@ def test_trace_start_equals_jax(scene, table, restart):
         state.u32_to_device(words, "cpu"), _t(origins), _t(flat), visits=visits,
         start=(_t(ji), _t(jp), _t(jd)), parent_restart=restart,
         warp_table=None if tab is None else state.table_to_device(tab, "cpu"))
-    _assert_exact(ttracer.to_numpy(res), ttracer.to_numpy(res_j))
+    b = ttracer.to_numpy(res_j)
+    if tab is not None:
+        b["steps"] = ttracer.to_numpy(jtracer.trace(
+            jnp.asarray(words), jnp.asarray(origins), jnp.asarray(flat), start=(ji, jp, jd),
+            parent_restart=restart, warp_table=jnp.asarray(skip_free(tab)))[0])["steps"]
+    _assert_exact(ttracer.to_numpy(res), b)
     if tab is None:
         np.testing.assert_array_equal(visits.numpy(), np.asarray(visits_j))
     else:

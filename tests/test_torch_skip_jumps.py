@@ -63,15 +63,19 @@ def test_jumps_leave_the_reference_zero_set(flags, restart):
     w, table, origin, dirs, res, visits = _frame(flags, restart)
     ref = reference_visits(w, origin.numpy(), dirs.numpy(), shadows=True)
     # The pool puts CROSSED where only jumps go: every ray leaves the
-    # camera's leaf in one step, a jump over the cube that the table stores
+    # camera's leaf in one trip, a jump over the cube that the table stores
     # for its octant (x from -1 up to 0.5 at least), and hits B's filled
     # children at x = 0.5, where its shadow ray starts; no trip reads
-    # CROSSED, whose leaves the jumps mark. The reference's rays read it.
+    # CROSSED, whose leaves the jumps mark. The reference's rays read it,
+    # and the jump counts the boundary steps they take there.
     skip_word = tracer._warp_lookup(tracer.widen_u32(table), LEVELS,
                                     torch.from_numpy(POS)[None], True, True)[4]
     sides = tracer._decode_skip(skip_word, torch.arange(4, 8))
     assert bool((-1.0 + 0.25 * sides >= 0.5).all())
-    assert bool(res.hit.all()) and bool((res.steps == 1).all())
+    ref_steps = ref_trace.trace_rays(ref_trace.widen(torch.from_numpy(w.view(np.int32))),
+                                     origin, dirs.reshape(-1, 3))["steps"]
+    assert bool(res.hit.all()) and torch.equal(res.steps.long(), ref_steps)
+    assert bool((ref_steps > 1).all())
     assert bool((res.hit_pos[:, 0] >= 0.5).all())
     v = visits.numpy()
     assert (v[CROSSED] == 0).all() and (v[24:56] > 0).any()
@@ -85,7 +89,8 @@ def test_jump_marks_the_leaves_of_the_cells_crossed(flags):
     it reads the camera's leaf (slot 8) and, past the jump, B's filled
     child (20); the jump marks the covering leaves of the cells 2-5 it
     crosses beyond the camera's leaf (27 and 31 under CROSSED's first
-    interior, then 16, B's empty child, twice), and nothing else."""
+    interior, then 16, B's empty child, twice), and nothing else, and
+    counts a root descent's four steps: out of 8, 27, 31 and 16."""
     w = _jump_pool()
     words = state.u32_to_device(w, "cpu")
     table = skip.build_warp_skip_table(words, LEVELS)
@@ -93,10 +98,40 @@ def test_jump_marks_the_leaves_of_the_cells_crossed(flags):
     res = tracer.trace(words, torch.from_numpy(POS)[None],
                        torch.tensor([[1.0, 0.0, 0.0]]), warp_table=table, visits=visits,
                        visit_flags=flags)
-    assert bool(res.hit[0]) and int(res.index[0]) == 20 and int(res.steps[0]) == 1
+    assert bool(res.hit[0]) and int(res.index[0]) == 20 and int(res.steps[0]) == 4
     want = {8: 1, 20: 1, 27: 1, 31: 1, 16: 1 if flags else 2}
     got = {int(i): int(visits[i]) for i in torch.nonzero(visits).flatten()}
     assert got == want
+
+
+@pytest.mark.parametrize("restart", [True, False], ids=["parent", "root"])
+@pytest.mark.parametrize("flags", [False, True], ids=["counts", "flags"])
+def test_counted_jumps_meet_the_step_cap_where_a_descent_does(flags, restart):
+    """Under a step cap that binds, a counted trace on the combined table
+    forces the rays a root descent forces, at its positions: every field
+    but the depth equals that of the trace without jumps (the table's skip
+    half zeroed), which takes each boundary step the descent takes. A jump
+    counts the steps it stands for, and none crosses the cap: its cube
+    shrinks near it. Uncounted, a jump counts one step, and fewer rays
+    reach the cap."""
+    words = state.u32_to_device(scenes.deep_shell(6), "cpu")
+    table = skip.build_warp_skip_table(words, 4)
+    free = table.clone()
+    free[1::2] = 0
+    _, ci = camera.camera_matrices(np.array([0.3, 0.55, -1.9], np.float32),
+                                   np.array([-0.1, -0.3, 1.0], np.float32), 70.0, 32, 32)
+    origin, dirs = camera.generate_rays_device(ci, 32, 32, "cpu")
+    origins = origin.reshape(1, 3).expand(32 * 32, 3)
+    dirs = dirs.reshape(-1, 3)
+    visits = torch.zeros(words.shape[0], dtype=torch.int32)
+    kw = dict(max_steps=6, parent_restart=restart)
+    got = tracer.trace(words, origins, dirs, warp_table=table, visits=visits,
+                       visit_flags=flags, **kw)
+    want = tracer.trace(words, origins, dirs, warp_table=free, **kw)
+    for f in ("hit", "forced", "index", "hit_pos", "normal", "steps", "word"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    jumped = tracer.trace(words, origins, dirs, warp_table=table, **kw)
+    assert int(want.forced.sum()) > int(jumped.forced.sum()) > 0
 
 
 RES = 24

@@ -162,6 +162,49 @@ def test_patched_slots_count_each_steps_drain(world_dir):
     assert read(run) is None
 
 
+def test_warp_builds_count_each_whole_table_build(monkeypatch):
+    """``session.warp_builds`` adds one under each ``session.warp_build``
+    span, one a whole-table build (``Session._build_table``), in its
+    render's step; ``session.skip_rebuilds`` one a skip-half rebuild."""
+    from octree_tracer_tpu_torch.app import session
+
+    monkeypatch.setattr(session, "WARP_LEVELS", 5)
+    calls = {"build": 0, "rebuild": 0}
+    build, rebuild = Session._build_table, Session._rebuild_skip_half
+
+    def spy_build(self, combined):
+        calls["build"] += 1
+        build(self, combined)
+
+    def spy_rebuild(self):
+        calls["rebuild"] += 1
+        rebuild(self)
+
+    monkeypatch.setattr(Session, "_build_table", spy_build)
+    monkeypatch.setattr(Session, "_rebuild_skip_half", spy_rebuild)
+    s = Session(scenes.shell_world(7), RES, RES, pool_capacity=1 << 18, device="cpu")
+    s.character.pos = np.array([0.25, 0.35, -1.3], np.float32)
+    s.character.look = np.array([-0.12, -0.17, 1.0], np.float32)
+    s.settings.warp_pool_words = 1
+    timing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(18):
+            if i >= 10:
+                s.character.turn(60.0, 0.0, fov=90.0)
+            s.step()
+    recs = timing.records()
+    spans = [r for r in recs if isinstance(r, timing.Span)]
+    renders = {r.step for r in spans if r.name == "session.render"}
+    builds = [r for r in spans if r.name == "session.warp_build"]
+    counts = [r for r in recs if isinstance(r, timing.Count) and r.name == "session.warp_builds"]
+    rebuilds = [r for r in recs if isinstance(r, timing.Count)
+                and r.name == "session.skip_rebuilds"]
+    assert sum(c.n for c in counts) == len(counts) == len(builds) == calls["build"] > 1
+    assert sorted(c.step for c in counts) == sorted(r.step for r in builds)
+    assert {c.step for c in counts} <= renders
+    assert sum(c.n for c in rebuilds) == calls["rebuild"] > 0
+
+
 def test_traced_session_equals_untraced_twin(world_dir):
     a, b = _session(world_dir), _session(world_dir)
     with profile(activities=[ProfilerActivity.CPU]):

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jump_marks import assert_jax_marks_with_jumps
+from jump_marks import assert_jax_marks_with_jumps, skip_free
 
 from octree_tracer_tpu.core import CpuOctree
 from octree_tracer_tpu.render import cpu_reference as joracle
@@ -347,7 +347,8 @@ def test_malformed_pool_visits_equal_jax(pool, table, flags):
     pool's end, counted or flagged. From a camera inside the root cube (a
     table's resume from outside differs by JAX's CPU face rounding, see
     test_torch_visits.py). Under the combined table the jumps also mark
-    empty leaves, which JAX's leave unread (``jump_marks``)."""
+    empty leaves, which JAX's leave unread, and count a root descent's
+    steps, JAX's without the jumps (``jump_marks``)."""
     origins, dirs = _mal_rays(inside=True)
     words, tab = MALFORMED[pool], _mal_table(pool, table)
     visits = torch.zeros(words.shape[0], dtype=torch.int32)
@@ -356,7 +357,10 @@ def test_malformed_pool_visits_equal_jax(pool, table, flags):
         jnp.asarray(words), jnp.asarray(origins), jnp.asarray(dirs),
         warp_table=None if tab is None else jnp.asarray(tab), with_visits=True,
         visit_flags=flags)
-    _assert_exact(a, ttracer.to_numpy(res))
+    b = ttracer.to_numpy(res)
+    if tab is not None:
+        b["steps"] = _jax(words, origins, dirs, skip_free(tab))["steps"]
+    _assert_exact(a, b)
     if tab is None:
         np.testing.assert_array_equal(visits.numpy(), np.asarray(expect))
     else:
