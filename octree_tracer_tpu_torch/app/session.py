@@ -29,7 +29,7 @@ Differences from the JAX Session:
   interiors a root descent reads: the JAX Session's jumps mark nothing and
   it lists the interiors only they cross to collapse, which the reference
   rule does not. Each such jump also counts the boundary steps a root
-  descent takes across it (``tracer._jump_steps``), where JAX's counts
+  descent takes across it (the same walk), where JAX's counts
   one, and shrinks near the step cap, so the frame forces the rays the
   reference forces, at its positions: with one step a jump, late fly-in
   frames left thousands of grazing rays short of the cap, whose hits and

@@ -275,8 +275,8 @@ def _cell_slots(table: torch.Tensor, levels: int, pool: torch.Tensor,
 def _jump_walk(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
                leaf_c, leaf_h, leaf_slot, strict: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The walk of K1's ``mark_jump`` over every jumping ray at once: the
-    slots a counted jump marks (``_jump_slots``) and the steps it stands for
-    (``_jump_steps``), for rays that take one from position ``v`` (entry
+    slots a counted jump marks and the steps it stands for (both returned
+    by ``_jump_slots``), for rays that take one from position ``v`` (entry
     ``p``, direction ``d``, signs ``rs``) across the cube of ``skw`` cells
     anchored at ``v``'s cell, out of the empty leaf of slot ``leaf_slot``,
     centre ``leaf_c`` and half side ``leaf_h``.
@@ -335,18 +335,19 @@ def _jump_walk(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v
 
 
 def _jump_slots(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
-                leaf_c, leaf_h, strict: bool = True) -> torch.Tensor:
-    """The slots a counted skip jump marks (``_jump_walk``)."""
-    return _jump_walk(table, levels, pool, p, d, rs, v, skw, leaf_c, leaf_h,
-                      torch.full_like(skw, -1), strict)[0]
-
-
-def _jump_steps(table: torch.Tensor, levels: int, pool: torch.Tensor, p, d, rs, v, skw,
-                leaf_c, leaf_h, leaf_slot, strict: bool) -> torch.Tensor:
-    """The root descent's steps that a counted skip jump stands for
-    (``_jump_walk``)."""
-    return _jump_walk(table, levels, pool, p, d, rs, v, skw, leaf_c, leaf_h, leaf_slot,
-                      strict)[1]
+                leaf_c, leaf_h, strict: bool = True, leaf_slot: torch.Tensor | None = None,
+                steps: torch.Tensor | None = None) -> torch.Tensor:
+    """The slots a counted skip jump marks, from one ``_jump_walk`` out of
+    the leaf of slot ``leaf_slot`` (none by default; the marks do not read
+    it); the root descent's steps the jump stands for go into ``steps``
+    when one is given."""
+    if leaf_slot is None:
+        leaf_slot = torch.full_like(skw, -1)
+    slots, n = _jump_walk(table, levels, pool, p, d, rs, v, skw, leaf_c, leaf_h, leaf_slot,
+                          strict)
+    if steps is not None:
+        steps.copy_(n)
+    return slots
 
 
 def _pool_rows(words: torch.Tensor) -> torch.Tensor:
@@ -602,8 +603,11 @@ def trace_plain(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
             if visits is not None and bool(jump.any()):
                 walk = (table, levels, pool, p[jump], d[jump], rs[jump], v[jump],
                         side_j[jump], np_[jump], inv1[jump])
-                mark(_jump_slots(*walk, strict=strict_descent))
-                taken[jump] = _jump_steps(*walk, idx[jump], strict_descent)
+                # One step a jump stays where the walk writes none.
+                taken_j = torch.ones_like(side_j[jump])
+                mark(_jump_slots(*walk, strict=strict_descent, leaf_slot=idx[jump],
+                                 steps=taken_j))
+                taken[jump] = taken_j
         tx, ty, tz = t.unbind(1)
         face = torch.stack([tx <= torch.minimum(ty, tz),
                             ty <= torch.minimum(tz, tx),
@@ -827,7 +831,7 @@ def trace(words, origins, dirs, active_init=None, max_steps=MAX_STEPS,
     empty leaf that covers each table cell it crosses (``_jump_slots``),
     which a root descent reads there, so that the visit closure leaves a
     root descent's interior zero-set, and counts the boundary steps a root
-    descent takes across it (``_jump_steps``), its cube shrinking near
+    descent takes across it (the same walk), its cube shrinking near
     ``max_steps`` so that no jump crosses it: the counted ``steps`` and the
     rays forced at the cap are the trace's without the jumps. Uncounted, a
     jump counts one step, as in JAX. ``parent_restart=False`` takes the

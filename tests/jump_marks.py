@@ -8,7 +8,7 @@ leaves the interior zero-set of a root descent, and the Session's collapse
 decisions are the reference's. Hits, images and every mark of a slot that
 is not an empty leaf stay JAX's; on empty leaves the port's marks are JAX's
 and the jumps'. A counted jump also counts the boundary steps that a root
-descent takes across it (``tracer._jump_steps``), where JAX's counts one,
+descent takes across it (the same walk), where JAX's counts one,
 so the counted ``steps`` are JAX's on the same table with its skip half
 zeroed (``skip_free``), which takes every one of those steps. Where the pool
 is well formed, the closed zero-set and the filled-leaf counts are held
